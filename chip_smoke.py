@@ -1,0 +1,332 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed 0] [--out report.json]
+
+Phases, each ending in one flushed progress line on stderr:
+
+1. device: the card's name and power limit (``nvidia-smi``);
+2. build: ``g++`` for the host voxel hash and ``nvcc`` for the gather-conv
+   kernel, started together, from the sources in this checkout;
+3. kernel: the gather-conv kernel against its plain PyTorch version on the
+   tables of one full-capacity host pyramid of the synthetic cloud, at the
+   11 ResUNetBN2C conv shapes, both as one rotation's int16 table and as the
+   main path's int32 table of a whole rotation chunk; error, CUDA-event times
+   and the card's bound for each;
+3b. reference: ``register_pair`` at a small configuration on the GPU and on
+   the CPU (plain version), whose descriptors must agree; this also brings
+   up every library the slice calls, so phase 4 times a warm process;
+4. slice: ``RegistrationPipeline.register_pair`` on a seeded 20000-point pair
+   at the full-width gather-engine configuration with seeded random weights;
+   checks the descriptor shapes and norms, that every gather conv went
+   through the kernel (launch count), and that the transform is a proper
+   rigid motion.
+
+Then it prints the kernel report as one JSON line, and as the last line
+``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
+without that line; so does a run without CUDA or outside the repository.
+The run ends itself after ``DEADLINE_S`` seconds.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import faulthandler
+import json
+import os
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+
+import numpy as np
+import torch
+
+# Hopper H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+# bf16 products are exact in f32, so kernel and plain version differ only by
+# the order of f32 summation (<= 6912 terms of outputs of magnitude <~ 10)
+KERNEL_ATOL = 1e-3
+# small-config descriptors, GPU kernel vs CPU plain version, both bf16: one
+# bf16 rounding of an intermediate activation may flip where the two
+# devices' f32 sums differ in the last bits, and that flip propagates
+REFERENCE_ATOL = 1e-2
+REFERENCE_MEAN_ATOL = 5e-4
+
+# (table, Cin, Cout, uses per forward) of ResUNetBN2C's 20 gather convs
+CONV_SHAPES = [
+    (("same", 0), 32, 32, 2),
+    (("down", 0), 32, 64, 1),
+    (("same", 1), 64, 64, 4),
+    (("down", 1), 64, 128, 1),
+    (("same", 2), 128, 128, 4),
+    (("down", 2), 128, 256, 1),
+    (("same", 3), 256, 256, 2),
+    (("up", 2), 256, 128, 1),
+    (("up", 1), 256, 64, 1),
+    (("up", 0), 128, 64, 1),
+    (("same", 0), 64, 64, 2),
+]
+
+# the run ends itself (exit code 1, tracebacks on stderr) after this long;
+# it must end within 1200 s, builds included
+DEADLINE_S = 1000.0
+
+T0 = time.perf_counter()
+
+
+def progress(msg: str) -> None:
+    print(f"[smoke +{time.perf_counter() - T0:.1f}s] {msg}", file=sys.stderr, flush=True)
+
+
+def cuda_ms(fn, reps: int, warmup: int = 2, flush: torch.Tensor | None = None) -> float:
+    """Mean CUDA-event milliseconds of ``fn`` over ``reps`` calls. With
+    ``flush``, that buffer is overwritten before each call (outside the
+    timed span), so every call starts with a cold L2 as on the main path,
+    where other layers' traffic runs between two convs."""
+    for _ in range(warmup):
+        fn()
+    spans = []
+    torch.cuda.synchronize()
+    for _ in range(reps):
+        if flush is not None:
+            flush.zero_()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        spans.append((start, end))
+    torch.cuda.synchronize()
+    return sum(s.elapsed_time(e) for s, e in spans) / reps
+
+
+def phase_device() -> dict:
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    kind = torch.cuda.get_device_name(0)
+    progress(f"phase 1 device: {kind} ({smi}), {torch.cuda.device_count()} visible, torch {torch.__version__}, CUDA {torch.version.cuda}")
+    return {"kind": kind, "nvidia_smi": smi}
+
+
+def phase_build() -> dict:
+    from roreg_tpu_torch.kernels.gather_conv import gather_conv_kernel
+    from roreg_tpu_torch.native import lib as native_lib
+
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        gxx = pool.submit(native_lib.build, True)
+        nvcc = pool.submit(gather_conv_kernel.build, True)
+        secs = {"g++ voxelhash": gxx.result(), "nvcc gather_conv": nvcc.result()}
+    progress("phase 2 build: " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
+    return secs
+
+
+def phase_kernel(cfg, pair: dict, seed: int, device: str = "cuda") -> tuple[dict, list]:
+    from roreg_tpu_torch.core.group import get_group
+    from roreg_tpu_torch.kernels.gather_conv import conv_work, gather_conv_kernel, gather_conv_plain
+    from roreg_tpu_torch.native.pyramid import alloc_pyramid_buffers, fill_pyramid_host, tree_slice
+    from roreg_tpu_torch.pipeline.extractor import effective_chunk, upload_chunk
+
+    # the host pyramids of the main path's first rotation chunk of cloud 0,
+    # uploaded and batched as the main path does it
+    chunk = effective_chunk(cfg.group_size, cfg.group_chunk)
+    rots = get_group(cfg.group_size).rotations.astype(np.float32)[:chunk]
+    buf = alloc_pyramid_buffers(cfg.capacities, cfg.conv1_kernel_size, chunk)
+    for b in range(chunk):
+        fill_pyramid_host(pair["points0"] @ rots[b].T, cfg.voxel_size, tree_slice(buf, b),
+                          conv1_kernel_size=cfg.conv1_kernel_size)
+    dev = torch.device(device)
+    keys_rot = np.einsum("kj,bij->bki", pair["keys0"].astype(np.float32), rots)
+    batched, _, _ = upload_chunk(buf, keys_rot, dev)
+    caps = cfg.capacities
+    nvox = [int(l.num[0]) for l in buf.levels]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    l2_flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # 5x the H100's 50 MB L2
+    rows = []
+    total = dict.fromkeys(("ms", "warm_l2_ms", "plain_ms", "bound_ms", "t_ops", "t_bytes", "err"), 0.0)
+    for (kind, lvl), cin, cout, uses in CONV_SHAPES:
+        src_lvl = lvl if kind in ("same", "down") else lvl + 1
+        n_src = caps[src_lvl]
+        single = torch.from_numpy(np.ascontiguousarray(getattr(buf, kind)[lvl][0])).to(dev)
+        table_b = getattr(batched, kind)[lvl]
+        w = (torch.randn(27, cin, cout, generator=gen, device=dev) * (2.0 / (27 * cin)) ** 0.5).bfloat16()
+        feats_b = torch.randn(chunk * n_src, cin, generator=gen, device=dev).bfloat16()
+        feats_1 = feats_b[:n_src].contiguous()
+        row = {"table": f"{kind}[{lvl}]", "M": single.shape[0], "N": n_src, "cin": cin,
+               "cout": cout, "uses": uses, "voxels": nvox}
+        for tag, feats, table in (("one", feats_1, single), ("chunk", feats_b, table_b)):
+            out_k = gather_conv_kernel(feats, table, w)
+            out_p = gather_conv_plain(feats, table, w)
+            torch.cuda.synchronize()
+            err = float((out_k - out_p).abs().max())
+            if not np.isfinite(err) or err > KERNEL_ATOL:
+                raise AssertionError(
+                    f"gather_conv {row['table']} {cin}->{cout} ({tag}): max abs err {err} > {KERNEL_ATOL}")
+            ms = cuda_ms(lambda: gather_conv_kernel(feats, table, w), reps=20, flush=l2_flush)
+            warm_ms = cuda_ms(lambda: gather_conv_kernel(feats, table, w), reps=20)
+            plain_ms = cuda_ms(lambda: gather_conv_plain(feats, table, w), reps=3, warmup=1,
+                               flush=l2_flush)
+            ops, nbytes = conv_work(table, cin, cout)
+            t_ops, t_bytes = ops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+            row[tag] = {"table_dtype": str(table.dtype).replace("torch.", ""), "rows": table.shape[0],
+                        "max_abs_err": err, "ms": ms, "warm_l2_ms": warm_ms, "plain_ms": plain_ms,
+                        "ops_ms": t_ops, "bytes_ms": t_bytes, "bound_ms": max(t_ops, t_bytes),
+                        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                        "tflops": ops / ms / 1e9}
+            total["err"] = max(total["err"], err)
+        c = row["chunk"]
+        total["ms"] += uses * c["ms"]
+        total["warm_l2_ms"] += uses * c["warm_l2_ms"]
+        total["plain_ms"] += uses * c["plain_ms"]
+        total["bound_ms"] += uses * c["bound_ms"]
+        total["t_ops"] += uses * c["ops_ms"]
+        total["t_bytes"] += uses * c["bytes_ms"]
+        rows.append(row)
+        progress(
+            f"  {row['table']:8s} M={row['M']:6d} N={n_src:6d} {cin:3d}->{cout:3d}: "
+            f"one-rotation int16 err {row['one']['max_abs_err']:.2e} kernel {row['one']['ms']:.3f} ms "
+            f"plain {row['one']['plain_ms']:.3f} ms | chunk of {chunk} int32 err {c['max_abs_err']:.2e} "
+            f"kernel {c['ms']:.3f} ms (warm L2 {c['warm_l2_ms']:.3f}) plain {c['plain_ms']:.3f} ms bound {c['bound_ms']:.4f} ms "
+            f"({c['bound_by']}), {c['tflops']:.1f} TFLOP/s (tol {KERNEL_ATOL})")
+    progress(f"phase 3 kernel: 11 shapes within {KERNEL_ATOL}; one chunk's 20 convs: kernel "
+             f"{total['ms']:.2f} ms (warm L2 {total['warm_l2_ms']:.2f} ms), plain {total['plain_ms']:.2f} ms, bound {total['bound_ms']:.3f} ms")
+    return total, rows
+
+
+def phase_slice(cfg, pair: dict, seed: int, device: str = "cuda") -> dict:
+    from roreg_tpu_torch.kernels.gather_conv import gather_conv_kernel
+    from roreg_tpu_torch.pipeline.extractor import effective_chunk
+    from roreg_tpu_torch.pipeline.registration import RegistrationPipeline
+    from roreg_tpu_torch.weights import init_variables
+
+    t0 = time.perf_counter()
+    pipe = RegistrationPipeline(cfg, init_variables(cfg, seed), device=device)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    gen = torch.Generator().manual_seed(seed)
+    timings: dict[str, float] = {}
+    gather_conv_kernel.launches = 0
+    t0 = time.perf_counter()
+    out = pipe.register_pair(pair["points0"], None, pair["keys0"], pair["points1"], None,
+                             pair["keys1"], generator=gen, timings=timings)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = gather_conv_kernel.launches
+
+    k, g = cfg.num_keypoints, cfg.group_size
+    for name in ("bb0", "gf0"):
+        x = out[name]
+        if tuple(x.shape) != (k, g, 32) or not bool(torch.isfinite(x).all()):
+            raise AssertionError(f"describe {name}: shape {tuple(x.shape)} or non-finite values")
+        dev_norm = float((torch.linalg.norm(x, dim=-1) - 1).abs().max())
+        if dev_norm > 1e-3:
+            raise AssertionError(f"describe {name}: rows not unit-norm (max |norm-1| {dev_norm})")
+    chunks = 2 * (g // effective_chunk(g, cfg.group_chunk))
+    if launches != 20 * chunks:
+        raise AssertionError(f"gather_conv kernel launched {launches} times, expected 20 x {chunks}")
+    T = out["transform"].double().cpu()
+    R = T[:3, :3]
+    if not bool(torch.isfinite(T).all()):
+        raise AssertionError("transform is not finite")
+    ortho = float((R.T @ R - torch.eye(3, dtype=R.dtype)).abs().max())
+    det = float(torch.linalg.det(R))
+    if ortho > 1e-4 or abs(det - 1) > 1e-4:
+        raise AssertionError(f"transform not a proper rotation: |RtR-I| {ortho}, det {det}")
+    res = {"setup_s": setup_s, "register_pair_s": wall, "stages_s": timings,
+           "launches": launches, "chunk_launches": chunks, "ortho_err": ortho, "det": det,
+           "overlap": float(out["overlap"]), "mutual_matches": int(out["match_valid"].sum()),
+           "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    progress(
+        "phase 4 slice: register_pair " + f"{wall:.2f} s ("
+        + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
+        + f"), {launches} kernel launches = 20 x {chunks} chunks, |RtR-I| {ortho:.1e}, det {det:.6f}, "
+        f"{res['mutual_matches']} mutual matches, peak {res['peak_mem_gb']:.1f} GB")
+    return res
+
+
+def phase_reference(cfg, seed: int, device: str = "cuda") -> dict:
+    from roreg_tpu_torch.data.synthetic import synthetic_pair
+    from roreg_tpu_torch.pipeline.registration import RegistrationPipeline
+    from roreg_tpu_torch.weights import init_variables
+
+    small = dataclasses.replace(
+        cfg, group_size=12, capacities=(4096, 2048, 1024, 512), conv1_kernel_size=5,
+        voxel_size=0.05, group_chunk=4, num_keypoints=256, keynum=128)
+    pair = synthetic_pair(seed + 1, points_per_cloud=6000, num_keypoints=256, surface_extent=1.6)
+    variables = init_variables(small, seed)
+    feats = {}
+    for dev in (device, "cpu"):
+        pipe = RegistrationPipeline(small, variables, device=dev)
+        out = pipe.register_pair(pair["points0"], None, pair["keys0"], pair["points1"], None,
+                                 pair["keys1"], generator=torch.Generator().manual_seed(seed))
+        feats[dev] = (out["bb0"].float().cpu(), out["gf0"].float().cpu())
+    errs = {}
+    for i, name in enumerate(("bb", "gf")):
+        d = (feats[device][i] - feats["cpu"][i]).abs()
+        errs[name] = {"max": float(d.max()), "mean": float(d.mean())}
+        if errs[name]["max"] > REFERENCE_ATOL or errs[name]["mean"] > REFERENCE_MEAN_ATOL:
+            raise AssertionError(f"GPU and CPU describe disagree on {name}: {errs[name]}")
+    progress(f"phase 3b reference: small-config register_pair descriptors, GPU kernel vs CPU plain: {errs} "
+             f"(tol max {REFERENCE_ATOL}, mean {REFERENCE_MEAN_ATOL})")
+    return errs
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--out", default=None, help="also write the full report as JSON here")
+    args = ap.parse_args()
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from roreg_tpu_torch.data.synthetic import synthetic_pair
+    from roreg_tpu_torch.pipeline.config import PipelineConfig
+
+    faulthandler.dump_traceback_later(DEADLINE_S, exit=True)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        report = {"device": phase_device(), "build_s": phase_build()}
+        cfg = PipelineConfig(engine="gather", use_rm=False)
+        pair = synthetic_pair(args.seed, points_per_cloud=20000, num_keypoints=cfg.num_keypoints)
+        total, rows = phase_kernel(cfg, pair, args.seed)
+        report["kernel_shapes"] = rows
+        report["reference"] = phase_reference(cfg, args.seed)
+        report["slice"] = phase_slice(cfg, pair, args.seed)
+        report["total_s"] = time.perf_counter() - T0
+        kernels = {"kernels": [{
+            "name": "gather_conv",
+            "route": "cuda",
+            "source": "roreg_tpu_torch/csrc/gather_conv.cu",
+            "replaces": "roreg_tpu/sparse/window_conv.py:140",
+            "launches": report["slice"]["launches"],
+            "max_abs_err": total["err"],
+            "ms": total["ms"],
+            "plain_ms": total["plain_ms"],
+            "bound_ms": total["bound_ms"],
+            "bound_by": "operations" if total["t_ops"] >= total["t_bytes"] else "bytes",
+            "library_ms": None,
+            "unit": "the 20 convs of one rotation chunk's batched forward",
+        }]}
+        report.update(kernels)
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            with open(args.out, "w") as f:
+                json.dump(report, f, indent=1)
+        progress(f"all phases passed in {report['total_s']:.1f} s")
+        print(json.dumps(kernels), flush=True)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": report["device"]["kind"],
+            "count": torch.cuda.device_count()}}), flush=True)
+    finally:
+        faulthandler.cancel_dump_traceback_later()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

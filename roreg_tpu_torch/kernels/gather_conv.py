@@ -1,0 +1,155 @@
+"""Gather-GEMM sparse convolution: the Hopper kernel and its plain version.
+
+``out[i] = sum_k feats[nbr[i, k]] @ weights[k]``, with -1 entries adding
+nothing: the function of ``roreg_tpu/sparse/conv.py`` ``gather_conv`` and of
+the TPU kernel ``roreg_tpu/sparse/window_conv.py`` ``window_gather_conv``.
+
+:func:`gather_conv` runs the plain PyTorch version for tensors on the CPU
+and the CUDA kernel of ``csrc/gather_conv.cu`` for tensors on the GPU; on a
+GPU it launches the kernel or raises. The kernel is built with ``nvcc`` into
+the port's build directory at first use and bound with ``ctypes``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import threading
+
+import torch
+
+from roreg_tpu_torch.build import BUILD_DIR, compile_shared, needs_build
+
+__all__ = ["gather_conv", "gather_conv_plain", "gather_conv_kernel", "conv_work"]
+
+_SRC = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc", "gather_conv.cu"
+)
+_SO = os.path.join(BUILD_DIR, "libgather_conv.so")
+_NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+]
+
+
+def _nvcc() -> str:
+    cuda = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
+    return cuda if os.path.exists(cuda) else (shutil.which("nvcc") or "nvcc")
+
+
+def gather_conv_plain(
+    feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor
+) -> torch.Tensor:
+    """The plain version: gather, mask, one f32 GEMM. (N, C), (M, K),
+    (K, C, Cout) -> (M, Cout) float32, any device and float dtype."""
+    m, k = nbr.shape
+    if weights.shape[0] != k or weights.shape[1] != feats.shape[1]:
+        raise ValueError(
+            f"shape mismatch: feats {tuple(feats.shape)}, nbr {tuple(nbr.shape)}, "
+            f"weights {tuple(weights.shape)}"
+        )
+    idx = nbr.long()
+    g = feats.float()[idx.clamp_min(0)]  # (M, K, C)
+    g = torch.where((idx >= 0)[..., None], g, torch.zeros((), dtype=g.dtype, device=g.device))
+    return g.reshape(m, -1) @ weights.float().reshape(-1, weights.shape[-1])
+
+
+class GatherConvKernel:
+    """The CUDA kernel's wrapper: builds and loads the library, checks its
+    arguments, launches on the current stream, and counts launches in
+    ``launches`` (one per launch, nowhere else)."""
+
+    def __init__(self) -> None:
+        self.launches = 0
+        self._lib: ctypes.CDLL | None = None
+        self._lock = threading.Lock()
+
+    def build(self, force: bool = False) -> float:
+        """Compile ``csrc/gather_conv.cu`` for sm_90a if the library is
+        missing or stale (or ``force``); returns nvcc's seconds."""
+        if force or needs_build(_SRC, _SO):
+            return compile_shared([_nvcc()] + _NVCC_FLAGS, _SRC, _SO)
+        return 0.0
+
+    def _load(self) -> ctypes.CDLL:
+        with self._lock:
+            if self._lib is None:
+                self.build()
+                lib = ctypes.CDLL(_SO)
+                vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+                lib.gather_conv_bf16.restype = ci
+                lib.gather_conv_bf16.argtypes = [
+                    vp, vp, ci, vp, vp, i64, i64, ci, ci, ci, vp,
+                ]
+                self._lib = lib
+            return self._lib
+
+    def __call__(
+        self, feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor
+    ) -> torch.Tensor:
+        dev = feats.device
+        if dev.type != "cuda" or nbr.device != dev or weights.device != dev:
+            raise ValueError("gather_conv kernel: every tensor must be on one CUDA device")
+        if feats.dtype != torch.bfloat16 or weights.dtype != torch.bfloat16:
+            raise TypeError(
+                f"gather_conv kernel takes bf16 feats and weights, got "
+                f"{feats.dtype} and {weights.dtype}"
+            )
+        if nbr.dtype not in (torch.int16, torch.int32):
+            raise TypeError(f"gather_conv kernel takes an int16/int32 table, got {nbr.dtype}")
+        if feats.dim() != 2 or nbr.dim() != 2 or weights.dim() != 3:
+            raise ValueError("gather_conv kernel: feats (N, C), nbr (M, K), weights (K, C, Cout)")
+        (n, c), (m, k), (kw, cw, cout) = feats.shape, nbr.shape, weights.shape
+        if kw != k or cw != c:
+            raise ValueError(
+                f"shape mismatch: feats {tuple(feats.shape)}, nbr {tuple(nbr.shape)}, "
+                f"weights {tuple(weights.shape)}"
+            )
+        if c % 32 or cout % 32 or not 1 <= k <= 32:
+            raise ValueError(
+                f"gather_conv kernel takes Cin and Cout in multiples of 32 and "
+                f"K <= 32, got Cin={c}, Cout={cout}, K={k}"
+            )
+        for name, t in (("feats", feats), ("nbr", nbr), ("weights", weights)):
+            if not t.is_contiguous():
+                raise ValueError(f"gather_conv kernel: {name} must be contiguous")
+        if feats.data_ptr() % 16 or weights.data_ptr() % 16:
+            raise ValueError("gather_conv kernel: feats and weights must be 16-byte aligned")
+        lib = self._load()
+        out = torch.empty((m, cout), dtype=torch.float32, device=dev)
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            rc = lib.gather_conv_bf16(
+                feats.data_ptr(), nbr.data_ptr(), nbr.element_size(),
+                weights.data_ptr(), out.data_ptr(), m, n, c, cout, k, stream,
+            )
+        if rc != 0:
+            raise RuntimeError(f"gather_conv kernel launch failed: CUDA error {rc}")
+        self.launches += 1
+        return out
+
+
+gather_conv_kernel = GatherConvKernel()
+
+
+def gather_conv(
+    feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor
+) -> torch.Tensor:
+    """Plain version for CPU tensors, the CUDA kernel for GPU tensors."""
+    if feats.device.type == "cpu":
+        return gather_conv_plain(feats, nbr, weights)
+    return gather_conv_kernel(feats, nbr, weights)
+
+
+def conv_work(nbr: torch.Tensor, cin: int, cout: int) -> tuple[int, int]:
+    """(operations, bytes) one call needs with this table: 2*Cin*Cout per
+    valid (row, offset) entry; bytes for each source row the table
+    references read once (bf16), the whole table and the bf16 weights read
+    once, and the whole f32 output written once."""
+    m, k = nbr.shape
+    valid = nbr >= 0
+    ops = 2 * int(valid.sum()) * cin * cout
+    rows_read = int(torch.unique(nbr[valid]).numel())
+    nbytes = rows_read * cin * 2 + m * k * nbr.element_size() + k * cin * cout * 2 + m * cout * 4
+    return ops, nbytes

@@ -1,0 +1,221 @@
+"""End-to-end pair registration: extract -> describe -> detect -> match ->
+estimate, on the compute device.
+
+Counterpart of ``roreg_tpu/pipeline/registration.py`` (``gf_apply``,
+``rd_apply``, ``et_apply`` and ``RegistrationPipeline``) on the
+``use_rm=False`` branch: mutual nearest neighbours of group-mean
+descriptors, the ET residual quaternions and yohoo RANSAC. Side convention
+as in the reference: gt satisfies ``pts0 = R @ pts1 + t``.
+
+Random draws are inputs: ``perm`` (the RANSAC hypothesis order) and, with
+``use_rd=False``, ``noise0``/``noise1`` (the keypoint sampling priorities).
+When they are not given they are drawn from ``generator``.
+"""
+
+from __future__ import annotations
+
+import time
+from typing import Any
+
+import numpy as np
+import torch
+
+from roreg_tpu_torch.core.group import get_group
+from roreg_tpu_torch.device import resolve_device
+from roreg_tpu_torch.models.et import EquivariantTransformer
+from roreg_tpu_torch.models.gf import GroupFeatNetwork
+from roreg_tpu_torch.models.rd import RotationDetector
+from roreg_tpu_torch.pipeline import estimator as est
+from roreg_tpu_torch.pipeline.config import PipelineConfig, check_supported
+from roreg_tpu_torch.pipeline.extractor import extract_group_features_hostmaps
+from roreg_tpu_torch.pipeline.matcher import (
+    mutual_match,
+    nms_sample,
+    rank_normalize,
+    top_k_indices,
+)
+from roreg_tpu_torch.weights import build_modules, load_variables
+
+__all__ = ["RegistrationPipeline", "gf_apply", "rd_apply", "et_apply"]
+
+
+def _chunks(n: int, bs: int):
+    bs = max(1, min(bs, n))
+    return [(i, min(i + bs, n)) for i in range(0, n, bs)]
+
+
+def gf_apply(gf: GroupFeatNetwork, group_feats: torch.Tensor, cfg: PipelineConfig) -> torch.Tensor:
+    """(K, G, 32) backbone group feats -> (K, G, 32) eqv descriptors, in
+    ``bs_gf`` batches."""
+    k = group_feats.shape[0]
+    return torch.cat([gf(group_feats[a:b])["eqv"] for a, b in _chunks(k, cfg.bs_gf)])
+
+
+def rd_apply(rd: RotationDetector, eqv: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """Saliency scores, rank-normalised to [0, 1)."""
+    return rank_normalize(rd(eqv), mask)
+
+
+def et_apply(
+    et: EquivariantTransformer, bb0_m, bb1_m, gf0_m, gf1_m, idx, cfg: PipelineConfig
+) -> torch.Tensor:
+    """Residual quaternions of matched pairs, in ``bs_et`` batches, with
+    the reference's side exchange (before0 = cloud-1 features)."""
+    m = bb0_m.shape[0]
+    return torch.cat([
+        et(bb1_m[a:b], bb0_m[a:b], gf1_m[a:b], gf0_m[a:b], idx[a:b])
+        for a, b in _chunks(m, cfg.bs_et)
+    ])
+
+
+class RegistrationPipeline:
+    """Holds the networks of the ported slice and registers scan pairs.
+
+    ``variables``: the JAX package's variables as nested dicts of numpy
+    arrays, with keys ``backbone``, ``gf``, ``rd``, ``et`` (others, such
+    as ``rm``, are ignored). ``device``: CUDA unless ``"cpu"`` is passed.
+    """
+
+    def __init__(self, cfg: PipelineConfig, variables: dict[str, Any], device=None):
+        check_supported(cfg)
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        group = get_group(cfg.group_size)
+        self.cayley = torch.as_tensor(group.cayley, dtype=torch.long, device=self.device)
+        self.rotations = torch.as_tensor(group.rotations, dtype=torch.float32, device=self.device)
+        self.nets = build_modules(cfg)
+        for name, net in self.nets.items():
+            load_variables(net, variables[name])
+            net.to(self.device).eval()
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _host(self, x) -> np.ndarray:
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+    def _tensor(self, x, dtype=torch.float32) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(x), dtype=dtype).to(self.device)
+
+    # ---- stages ----
+
+    @torch.inference_mode()
+    def extract(self, points, point_mask, keypoints, timings=None) -> torch.Tensor:
+        """Cloud -> (K, G, 32) backbone group features."""
+        pts = self._host(points)
+        if point_mask is not None:
+            pts = pts[self._host(point_mask).astype(bool)]
+        return extract_group_features_hostmaps(
+            self.nets["backbone"], pts, self._host(keypoints), self.cfg, self.device, timings
+        )
+
+    @torch.inference_mode()
+    def describe(self, points, point_mask, keypoints):
+        """Cloud -> (backbone group features, GF eqv descriptors), both
+        (K, G, 32)."""
+        bb = self.extract(points, point_mask, keypoints)
+        return bb, gf_apply(self.nets["gf"], bb, self.cfg)
+
+    @torch.inference_mode()
+    def detect(self, gf_eqv: torch.Tensor, kp_mask: torch.Tensor) -> torch.Tensor:
+        return rd_apply(self.nets["rd"], gf_eqv, kp_mask)
+
+    @torch.inference_mode()
+    def sample_keypoints(self, keys, det_scores, kp_mask, noise=None, generator=None):
+        """``keynum`` keypoint indices: NMS on the detector scores, or with
+        ``use_rd=False`` the top ``noise`` priorities (uniform draws)."""
+        cfg = self.cfg
+        if cfg.use_rd:
+            return nms_sample(keys, det_scores, kp_mask, cfg.keynum, cfg.nms_k)
+        if noise is None:
+            noise = torch.rand(keys.shape[0], generator=generator)
+        noise = self._tensor(noise)
+        prio = torch.where(kp_mask, noise, torch.full_like(noise, -1.0))
+        return top_k_indices(prio, cfg.keynum)
+
+    @torch.inference_mode()
+    def register_pair(
+        self,
+        points0, mask0, keys0,
+        points1, mask1, keys1,
+        kp_mask0=None, kp_mask1=None,
+        *,
+        perm=None,
+        noise0=None,
+        noise1=None,
+        generator: torch.Generator | None = None,
+        timings: dict[str, float] | None = None,
+    ) -> dict[str, torch.Tensor]:
+        """Full pipeline on one scan pair; returns the transform and
+        diagnostics. Host arrays in, device tensors out. With ``timings``,
+        the seconds of each stage are written into it (the device is
+        synchronised at each stage boundary), and ``host_wait`` holds the
+        seconds describe waited for host pyramid builds."""
+        cfg = self.cfg
+        clock = [time.perf_counter()]
+
+        def lap(name: str) -> None:
+            if timings is not None:
+                self._sync()
+                now = time.perf_counter()
+                timings[name] = now - clock[0]
+                clock[0] = now
+
+        k0 = self._tensor(keys0)
+        k1 = self._tensor(keys1)
+        ones0 = torch.ones(k0.shape[0], dtype=torch.bool, device=self.device)
+        ones1 = torch.ones(k1.shape[0], dtype=torch.bool, device=self.device)
+        kp_mask0 = ones0 if kp_mask0 is None else self._tensor(kp_mask0, torch.bool)
+        kp_mask1 = ones1 if kp_mask1 is None else self._tensor(kp_mask1, torch.bool)
+
+        bb0 = self.extract(points0, mask0, keys0, timings)
+        lap("describe0")
+        bb1 = self.extract(points1, mask1, keys1, timings)
+        lap("describe1")
+
+        gf0 = gf_apply(self.nets["gf"], bb0, cfg)
+        gf1 = gf_apply(self.nets["gf"], bb1, cfg)
+        det0 = self.detect(gf0, kp_mask0) if cfg.use_rd else None
+        det1 = self.detect(gf1, kp_mask1) if cfg.use_rd else None
+        s0 = self.sample_keypoints(k0, det0, kp_mask0, noise0, generator)
+        s1 = self.sample_keypoints(k1, det1, kp_mask1, noise1, generator)
+        lap("gf_rd_nms")
+
+        gf0_s, gf1_s = gf0[s0], gf1[s1]
+        k0_s, k1_s = k0[s0], k1[s1]
+        ones = torch.ones(cfg.keynum, dtype=torch.bool, device=self.device)
+        nn01, mvalid = mutual_match(gf0_s, gf1_s, ones, ones)
+        m0 = torch.arange(cfg.keynum, device=self.device)
+        m1 = nn01
+        mscores = torch.ones(cfg.keynum, device=self.device)
+        keys_m0, keys_m1 = k0_s[m0], k1_s[m1]
+        est_valid = mvalid
+
+        dr = est.dr_index(gf0_s[m0], gf1_s[m1], self.cayley)
+        quats = et_apply(
+            self.nets["et"], bb0[s0][m0], bb1[s1][m1], gf0_s[m0], gf1_s[m1], dr, cfg
+        )
+        T_hyp = est.local_transforms(quats, dr, keys_m0, keys_m1, self.rotations)
+        if perm is None:
+            perm = torch.randperm(T_hyp.shape[0], generator=generator)
+        perm = self._tensor(perm, torch.long)
+        T, overlap, winner = est.yohoo_ransac(
+            perm, T_hyp, est_valid, keys_m0, keys_m1, mscores, est_valid,
+            cfg.ransac_ird, cfg.max_iter,
+        )
+        lap("match_et_ransac")
+        return {
+            "transform": T,
+            "overlap": overlap,
+            "matches": torch.stack([s0[m0], s1[m1]], -1),
+            "match_valid": mvalid,
+            "match_scores": mscores,
+            "est_valid": est_valid,
+            "dr_index": dr,
+            "winner": winner,
+            "sample0": s0,
+            "sample1": s1,
+            "bb0": bb0,
+            "gf0": gf0,
+        }

@@ -1,0 +1,166 @@
+"""JAX variables <-> the port's modules.
+
+The JAX package's variables, given as nested dicts of numpy arrays
+(``{"params": {...}, "batch_stats": {...}}`` per network), map one to one
+onto the port's modules, whose submodules carry the flax names:
+
+* flax ``Dense`` and group-conv kernels ``(in, out)`` <-> ``nn.Linear.weight``
+  ``(out, in)``, biases as they are;
+* sparse-conv kernels keep ``(27|343, Cin, Cout)``;
+* batch norm: ``params/{scale,bias}`` and ``batch_stats/{mean,var}`` <->
+  ``weight``, ``bias``, ``running_mean``, ``running_var``.
+
+Networks the port has no module for yet (RM) convert to flat state_dicts
+with :func:`flatten_variables`. Nothing here imports flax or orbax: callers
+restore checkpoints themselves and pass numpy arrays.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Iterator
+
+import numpy as np
+import torch
+from torch import nn
+
+from roreg_tpu_torch.core.group import get_group
+from roreg_tpu_torch.layers import BatchNorm
+from roreg_tpu_torch.models.et import EquivariantTransformer
+from roreg_tpu_torch.models.gf import GroupFeatNetwork
+from roreg_tpu_torch.models.ops import GroupConv
+from roreg_tpu_torch.models.rd import RotationDetector
+from roreg_tpu_torch.pipeline.config import PipelineConfig
+from roreg_tpu_torch.sparse.resunet import ResUNet
+
+__all__ = [
+    "build_modules",
+    "load_variables",
+    "export_variables",
+    "flatten_variables",
+    "unflatten_variables",
+    "init_variables",
+]
+
+
+def build_modules(cfg: PipelineConfig) -> dict[str, nn.Module]:
+    """The slice's networks at the shapes ``cfg`` gives, on the CPU."""
+    group = get_group(cfg.group_size)
+    return {
+        "backbone": ResUNet(
+            cfg.backbone_variant, 32, cfg.conv1_kernel_size, True,
+            cfg.backbone_compute_dtype,
+        ),
+        "gf": GroupFeatNetwork(group),
+        "rd": RotationDetector(group),
+        "et": EquivariantTransformer(group),
+    }
+
+
+def _leaves(module: nn.Module) -> Iterator[tuple[torch.Tensor, tuple[str, ...], bool]]:
+    """(tensor, JAX path, transposed) for every parameter and buffer that
+    the JAX variables hold."""
+    for name, m in module.named_modules():
+        path = tuple(name.split(".")) if name else ()
+        if isinstance(m, nn.Linear):
+            yield m.weight, ("params",) + path + ("kernel",), True
+            if m.bias is not None:
+                yield m.bias, ("params",) + path + ("bias",), False
+        elif isinstance(m, BatchNorm):
+            yield m.weight, ("params",) + path + ("scale",), False
+            yield m.bias, ("params",) + path + ("bias",), False
+            yield m.running_mean, ("batch_stats",) + path + ("mean",), False
+            yield m.running_var, ("batch_stats",) + path + ("var",), False
+        elif "kernel" in m._parameters:
+            yield m.kernel, ("params",) + path + ("kernel",), False
+
+
+def flatten_variables(tree: dict, prefix: tuple[str, ...] = ()) -> dict[str, np.ndarray]:
+    """Nested dict -> {"a/b/c": array}."""
+    out: dict[str, np.ndarray] = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out.update(flatten_variables(v, prefix + (k,)))
+        else:
+            out["/".join(prefix + (k,))] = np.asarray(v)
+    return out
+
+
+def unflatten_variables(flat: dict[str, Any]) -> dict:
+    """{"a/b/c": array} -> nested dict."""
+    tree: dict = {}
+    for key, v in flat.items():
+        node = tree
+        *head, last = key.split("/")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[last] = v
+    return tree
+
+
+@torch.no_grad()
+def load_variables(module: nn.Module, variables: dict) -> None:
+    """Copy JAX variables into ``module``; raises on a missing, extra or
+    mis-shaped leaf."""
+    flat = flatten_variables(variables)
+    used = set()
+    for t, path, transposed in _leaves(module):
+        key = "/".join(path)
+        if key not in flat:
+            raise KeyError(f"variables lack {key}")
+        a = flat[key].T if transposed else flat[key]
+        if tuple(a.shape) != tuple(t.shape):
+            raise ValueError(f"{key}: variables {a.shape} vs module {tuple(t.shape)}")
+        t.copy_(torch.from_numpy(np.array(a, dtype=np.float32)))
+        used.add(key)
+    extra = sorted(set(flat) - used)
+    if extra:
+        raise KeyError(f"variables hold leaves the module has no place for: {extra}")
+
+
+def export_variables(module: nn.Module) -> dict:
+    """The module's parameters and statistics in the JAX layout."""
+    flat = {}
+    for t, path, transposed in _leaves(module):
+        a = t.detach().cpu().numpy()
+        flat["/".join(path)] = np.ascontiguousarray(a.T if transposed else a)
+    return unflatten_variables(flat)
+
+
+def _truncated_normal(rng: np.random.Generator, shape, std: float) -> np.ndarray:
+    """N(0, std^2) truncated at +-2 std, with flax's variance correction."""
+    x = rng.standard_normal(shape)
+    bad = np.abs(x) > 2
+    while bad.any():
+        x[bad] = rng.standard_normal(int(bad.sum()))
+        bad = np.abs(x) > 2
+    return (x * std / 0.87962566103423978).astype(np.float32)
+
+
+def init_variables(cfg: PipelineConfig, seed: int = 0) -> dict[str, dict]:
+    """Random variables for the slice's networks, drawn with numpy from
+    ``seed`` at the JAX package's initialiser scales: fan-in truncated
+    normals (scale 2 for sparse and group convs, 1 for dense layers), zero
+    biases, unit norms and statistics."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name, net in build_modules(cfg).items():
+        dense_paths = {
+            ("params",) + tuple(n.split(".")) + ("kernel",)
+            for n, m in net.named_modules()
+            if isinstance(m, nn.Linear) and not isinstance(m, GroupConv)
+        }
+        flat = {}
+        for t, path, transposed in _leaves(net):
+            shape = tuple(t.shape[::-1]) if transposed else tuple(t.shape)
+            leaf = path[-1]
+            if leaf == "kernel":
+                fan_in = int(np.prod(shape[:-1]))
+                scale = 1.0 if path in dense_paths else 2.0
+                a = _truncated_normal(rng, shape, np.sqrt(scale / fan_in))
+            elif leaf in ("scale", "var"):
+                a = np.ones(shape, np.float32)
+            else:
+                a = np.zeros(shape, np.float32)
+            flat["/".join(path)] = a
+        out[name] = unflatten_variables(flat)
+    return out

@@ -1,0 +1,108 @@
+"""Guards on the port: it imports no JAX, runs on CUDA unless told
+otherwise, and refuses the options it has not ported."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+from roreg_tpu_torch.pipeline.config import PipelineConfig  # noqa: E402
+from roreg_tpu_torch.pipeline.registration import RegistrationPipeline  # noqa: E402
+from roreg_tpu_torch.weights import init_variables  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "orbax", "roreg_tpu"}
+
+
+def _port_sources():
+    root = os.path.join(REPO, "roreg_tpu_torch")
+    for d, _, files in os.walk(root):
+        for f in files:
+            if f.endswith(".py"):
+                yield os.path.join(d, f)
+    yield os.path.join(REPO, "chip_smoke.py")
+
+
+def test_no_jax_imports_in_port():
+    bad = []
+    for path in _port_sources():
+        tree = ast.parse(open(path).read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            bad += [(path, n) for n in names if n.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_port_imports_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'roreg_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "import pkgutil, importlib, roreg_tpu_torch\n"
+        "for m in pkgutil.walk_packages(roreg_tpu_torch.__path__, 'roreg_tpu_torch.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "print('ok')\n"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+SMALL = dict(group_size=12, capacities=(512, 256, 128, 64), conv1_kernel_size=3,
+             engine="gather", use_rm=False)
+
+
+def test_entry_point_needs_cuda_unless_cpu(monkeypatch):
+    cfg = PipelineConfig(**SMALL)
+    v = init_variables(cfg, 0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        RegistrationPipeline(cfg, v)
+    pipe = RegistrationPipeline(cfg, v, device="cpu")
+    assert pipe.device.type == "cpu"
+
+
+@pytest.mark.parametrize(
+    "change,item",
+    [({"engine": "block"}, "A2"), ({"use_rm": True}, "A1"),
+     ({"estimator": "yohoc"}, "A3"), ({"host_maps": False}, "A9"),
+     ({"backbone_variant": "ResUNetIN2C"}, "A8")],
+)
+def test_unported_options_raise(change, item):
+    cfg = PipelineConfig(**{**SMALL, **change})
+    with pytest.raises(NotImplementedError, match=item):
+        RegistrationPipeline(cfg, {}, device="cpu")
+
+
+def test_conv_window_is_accepted_and_ignored():
+    """conv_window was a TPU locality workaround; it changes nothing here."""
+    base = PipelineConfig(**{**SMALL, "backbone_compute_dtype": None})
+    v = init_variables(base, 0)
+    rng = np.random.default_rng(0)
+    pts = rng.uniform(0, 0.6, size=(600, 3)).astype(np.float32)
+    keys = pts[:20]
+    a = RegistrationPipeline(base, v, device="cpu").extract(pts, None, keys)
+    b = RegistrationPipeline(PipelineConfig(**{**SMALL, "backbone_compute_dtype": None, "conv_window": 1024}),
+                             v, device="cpu").extract(pts, None, keys)
+    assert torch.equal(a, b) and a.shape == (20, 12, 32)
+
+
+def test_config_copies_jax_fields_and_defaults():
+    import dataclasses
+
+    from roreg_tpu.pipeline.config import PipelineConfig as JConfig
+
+    port = {f.name: f.default for f in dataclasses.fields(PipelineConfig)}
+    ref = {f.name: f.default for f in dataclasses.fields(JConfig)}
+    assert port == ref
