@@ -5,26 +5,36 @@
 Phases, each ending in one flushed progress line on stderr:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: ``g++`` for the host voxel hash and ``nvcc`` for the gather-conv
-   kernel, started together, from the sources in this checkout;
+2. build: ``g++`` for the host voxel hash and ``nvcc`` for the three CUDA
+   kernels (gather_conv, block_gather, halo_conv), all started together,
+   from the sources in this checkout;
 3. kernel: the gather-conv kernel against its plain PyTorch version on the
    tables of one full-capacity host pyramid of the synthetic cloud, at the
    11 ResUNetBN2C conv shapes, both as one rotation's int16 table and as the
    main path's int32 table of a whole rotation chunk; error, CUDA-event times
    and the card's bound for each;
-3b. reference: ``register_pair`` at a small configuration on the GPU and on
-   the CPU (plain version), whose descriptors must agree; this also brings
-   up every library the slice calls, so phase 4 times a warm process;
-4. slice: ``RegistrationPipeline.register_pair`` on a seeded 20000-point pair
-   at the full-width gather-engine configuration with seeded random weights;
-   checks the descriptor shapes and norms, that every gather conv went
-   through the kernel (launch count), and that the transform is a proper
-   rigid motion.
+3b. block kernels: block_gather (bit-exact) and halo_conv (1e-3) against
+   their plain versions at every shape the block engine's ResUNetBN2C calls,
+   on the tables of the main path's own upload of one chunk of cloud 0;
+   error, times, bound and a library call's time for each;
+3c. reference: ``register_pair`` at a small configuration on the GPU and on
+   the CPU (plain versions), gather engine and block engine, whose
+   descriptors must agree; this also brings up every library the slices
+   call, so phases 4 and 5 time a warm process;
+4. gather slice: ``RegistrationPipeline.register_pair`` on a seeded
+   20000-point pair at the full-width gather-engine configuration with
+   seeded random weights;
+5. block slice: the same pair through ``PipelineConfig(use_rm=False)``, the
+   default (block) engine, full width; no block may be dropped.
 
-Then it prints the kernel report as one JSON line, and as the last line
-``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero
-without that line; so does a run without CUDA or outside the repository.
-The run ends itself after ``DEADLINE_S`` seconds.
+Each slice checks the descriptor shapes and norms, the launch counts of
+every kernel (zeroed just before the run: each kernel of the path ran
+once per conv per chunk, and no other kernel ran), and that the transform
+is a proper rigid motion. Then the script prints the kernel report as one
+JSON line, and as the last line ``{"ok": true, "device": {...}}``. Any
+failure raises and exits non-zero without that line; so does a run without
+CUDA or outside the repository. The run ends itself after ``DEADLINE_S``
+seconds.
 """
 
 from __future__ import annotations
@@ -67,6 +77,27 @@ CONV_SHAPES = [
     (("up", 1), 256, 64, 1),
     (("up", 0), 128, 64, 1),
     (("same", 0), 64, 64, 2),
+]
+
+# the block engine's ResUNetBN2C, one chunk's forward: (table, level, Cin,
+# Cout, uses) of its 17 halo convs (14 same-level, 3 down) ...
+BLOCK_HALO_SHAPES = [
+    ("same", 0, 32, 32, 2),
+    ("down", 0, 32, 64, 1),
+    ("same", 1, 64, 64, 4),
+    ("down", 1, 64, 128, 1),
+    ("same", 2, 128, 128, 4),
+    ("down", 2, 128, 256, 1),
+    ("same", 3, 256, 256, 2),
+    ("same", 0, 64, 64, 2),
+]
+# ... and (use, table level, row width R) of its 4 block gathers: conv1's
+# neighbour occupancy, and the coarse regions of the 3 up convs
+BLOCK_GATHER_SHAPES = [
+    ("conv1", 0, 64),
+    ("up", 2, 256),
+    ("up", 1, 256),
+    ("up", 0, 128),
 ]
 
 # the run ends itself (exit code 1, tracebacks on stderr) after this long;
@@ -112,14 +143,24 @@ def phase_device() -> dict:
     return {"kind": kind, "nvidia_smi": smi}
 
 
-def phase_build() -> dict:
+def _kernels() -> dict:
+    """name -> wrapper of every CUDA kernel of the port."""
+    from roreg_tpu_torch.kernels.block_gather import block_gather_kernel
     from roreg_tpu_torch.kernels.gather_conv import gather_conv_kernel
+    from roreg_tpu_torch.kernels.halo_conv import halo_conv_kernel
+
+    return {"gather_conv": gather_conv_kernel, "block_gather": block_gather_kernel,
+            "halo_conv": halo_conv_kernel}
+
+
+def phase_build() -> dict:
     from roreg_tpu_torch.native import lib as native_lib
 
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        gxx = pool.submit(native_lib.build, True)
-        nvcc = pool.submit(gather_conv_kernel.build, True)
-        secs = {"g++ voxelhash": gxx.result(), "nvcc gather_conv": nvcc.result()}
+    builds = {"g++ voxelhash": native_lib.build}
+    builds.update({f"nvcc {name}": k.build for name, k in _kernels().items()})
+    with ThreadPoolExecutor(max_workers=len(builds)) as pool:
+        futures = {name: pool.submit(fn, True) for name, fn in builds.items()}
+        secs = {name: f.result() for name, f in futures.items()}
     progress("phase 2 build: " + ", ".join(f"{k} {v:.1f} s" for k, v in secs.items()))
     return secs
 
@@ -196,8 +237,116 @@ def phase_kernel(cfg, pair: dict, seed: int, device: str = "cuda") -> tuple[dict
     return total, rows
 
 
-def phase_slice(cfg, pair: dict, seed: int, device: str = "cuda") -> dict:
-    from roreg_tpu_torch.kernels.gather_conv import gather_conv_kernel
+def _bound(ops: int, nbytes: int) -> dict:
+    t_ops, t_bytes = ops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"ops_ms": t_ops, "bytes_ms": t_bytes, "bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def phase_block_kernels(cfg, pair: dict, seed: int, device: str = "cuda") -> tuple[dict, list]:
+    """block_gather and halo_conv against their plain versions at every
+    shape of one chunk's forward, on the main path's own upload of chunk 0
+    of cloud 0. Returns (totals per kernel over one chunk's forward, rows)."""
+    import torch.nn.functional as F
+
+    from roreg_tpu_torch.kernels.block_gather import block_gather_kernel, block_gather_plain, gather_work
+    from roreg_tpu_torch.kernels.halo_conv import (
+        halo_conv_kernel, halo_conv_plain, halo_gather_plain, halo_work,
+    )
+    from roreg_tpu_torch.pipeline.extractor import (
+        build_cloud_payloads, chunk_block_pyramid, effective_chunk, upload_cloud_payloads,
+    )
+    from roreg_tpu_torch.sparse.block import unpack_cell_occupancy
+
+    dev = torch.device(device)
+    chunk = effective_chunk(cfg.group_size, cfg.group_chunk)
+    payload, key_rows, caps, dropped = build_cloud_payloads(pair["points0"], pair["keys0"], cfg)
+    if dropped:
+        raise AssertionError(f"cloud 0 drops {dropped} blocks at block_caps {caps}")
+    dev_payload, _ = upload_cloud_payloads(payload, key_rows, dev)
+    pyr = chunk_block_pyramid(dev_payload, 0, caps, chunk)
+    occs = [unpack_cell_occupancy(lvl.occ_words) for lvl in pyr.levels]
+    blocks = [int(o.any(1).sum()) for o in occs]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    l2_flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    keys = ("ms", "warm_l2_ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "bytes_ms", "err", "uses")
+    totals = {name: dict.fromkeys(keys, 0.0) for name in ("block_gather", "halo_conv")}
+    rows = []
+
+    def measure(name, kernel, plain, library, work, uses, exact, label):
+        out_k = kernel()
+        out_p = plain()
+        torch.cuda.synchronize()
+        err = float((out_k.float() - out_p.float()).abs().max())
+        if exact and not torch.equal(out_k, out_p):
+            raise AssertionError(f"{name} {label}: kernel differs from its plain version (max {err})")
+        if not np.isfinite(err) or err > KERNEL_ATOL:
+            raise AssertionError(f"{name} {label}: max abs err {err} > {KERNEL_ATOL}")
+        row = {"kernel": name, "shape": label, "uses": uses, "max_abs_err": err,
+               "ms": cuda_ms(kernel, reps=20, flush=l2_flush),
+               "warm_l2_ms": cuda_ms(kernel, reps=20),
+               "plain_ms": cuda_ms(plain, reps=3, warmup=1, flush=l2_flush),
+               "library_ms": cuda_ms(library, reps=5, warmup=1, flush=l2_flush), **_bound(*work)}
+        row["tflops"] = work[0] / row["ms"] / 1e9
+        row["gbps"] = work[1] / row["ms"] / 1e6
+        t = totals[name]
+        t["err"] = max(t["err"], err)
+        t["uses"] += uses
+        for k in keys[:-2]:
+            t[k] += uses * row[k]
+        rows.append(row)
+        progress(f"  {name:12s} {label:34s} err {err:.2e} kernel {row['ms']:.3f} ms (warm L2 "
+                 f"{row['warm_l2_ms']:.3f}) plain {row['plain_ms']:.3f} ms library {row['library_ms']:.3f} ms "
+                 f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), {row['gbps']:.0f} GB/s, "
+                 f"{row['tflops']:.1f} TFLOP/s")
+
+    for use, lvl, r in BLOCK_GATHER_SHAPES:
+        if use == "conv1":
+            tbl = pyr.levels[0].same_tbl
+            src = occs[0].to(torch.bfloat16).contiguous()
+        else:
+            tbl = pyr.up_tbl[lvl]
+            src = torch.randn(occs[lvl + 1].numel(), r, generator=gen, device=dev).bfloat16()
+        padded = torch.cat([torch.zeros_like(src[:1]), src])
+        ids = tbl.long() + 1
+        measure("block_gather", lambda: block_gather_kernel(src, tbl), lambda: block_gather_plain(src, tbl),
+                lambda: F.embedding(ids, padded), gather_work(src, tbl), 1, True,
+                f"{use}[{lvl}] B={tbl.shape[0]} R={r} Nsrc={src.shape[0]}")
+
+    for kind, lvl, cin, cout, uses in BLOCK_HALO_SHAPES:
+        span, stride = (6, 1) if kind == "same" else (9, 2)
+        tbl = pyr.levels[lvl].same_tbl if kind == "same" else pyr.down_tbl[lvl]
+        mask = occs[lvl] if kind == "same" else occs[lvl + 1]
+        feats = torch.randn(occs[lvl].shape[0], 64, cin, generator=gen, device=dev)
+        feats = (feats * occs[lvl][..., None]).bfloat16()
+        w = (torch.randn(27, cin, cout, generator=gen, device=dev) * (2.0 / (27 * cin)) ** 0.5).bfloat16()
+        # the library yardstick: a dense conv3d over the halo the plain version
+        # materialises (the gather is left out of its time)
+        halo = halo_gather_plain(feats, tbl, stride).view(-1, span, span, span, cin)
+        halo = halo.permute(0, 4, 1, 2, 3).contiguous()
+        w5 = w.view(3, 3, 3, cin, cout).permute(4, 3, 0, 1, 2).contiguous()
+        measure("halo_conv", lambda: halo_conv_kernel(feats, tbl, w, mask, span, stride),
+                lambda: halo_conv_plain(feats, tbl, w, mask, span, stride),
+                lambda: F.conv3d(halo, w5, stride=stride), halo_work(tbl, mask, cin, cout, stride), uses,
+                False, f"{kind}[{lvl}] {cin}->{cout} B={tbl.shape[0]}")
+        del halo
+
+    for name, t in totals.items():
+        t["bound_by"] = "operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes"
+    progress(
+        f"phase 3b block kernels: chunk of {chunk} rotations, {blocks} occupied of "
+        f"{[o.shape[0] for o in occs]} blocks per level; one chunk's forward: " + "; ".join(
+            f"{n} x{int(t['uses'])} kernel {t['ms']:.2f} ms, plain {t['plain_ms']:.2f} ms, library "
+            f"{t['library_ms']:.2f} ms, bound {t['bound_ms']:.3f} ms ({t['bound_by']}), max err {t['err']:.1e}"
+            for n, t in totals.items()))
+    return totals, rows
+
+
+def phase_slice(cfg, pair: dict, seed: int, per_chunk: dict, tag: str, device: str = "cuda") -> dict:
+    """One full-width ``register_pair``. ``per_chunk``: kernel name -> its
+    launches per chunk forward on this path; every kernel's count is zeroed
+    just before the run and must equal that times the pair's chunks after it
+    (0 for a kernel off the path)."""
     from roreg_tpu_torch.pipeline.extractor import effective_chunk
     from roreg_tpu_torch.pipeline.registration import RegistrationPipeline
     from roreg_tpu_torch.weights import init_variables
@@ -208,13 +357,15 @@ def phase_slice(cfg, pair: dict, seed: int, device: str = "cuda") -> dict:
     setup_s = time.perf_counter() - t0
     gen = torch.Generator().manual_seed(seed)
     timings: dict[str, float] = {}
-    gather_conv_kernel.launches = 0
+    kernels = _kernels()
+    for k in kernels.values():
+        k.launches = 0
     t0 = time.perf_counter()
     out = pipe.register_pair(pair["points0"], None, pair["keys0"], pair["points1"], None,
                              pair["keys1"], generator=gen, timings=timings)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = gather_conv_kernel.launches
+    launches = {name: k.launches for name, k in kernels.items()}
 
     k, g = cfg.num_keypoints, cfg.group_size
     for name in ("bb0", "gf0"):
@@ -225,8 +376,12 @@ def phase_slice(cfg, pair: dict, seed: int, device: str = "cuda") -> dict:
         if dev_norm > 1e-3:
             raise AssertionError(f"describe {name}: rows not unit-norm (max |norm-1| {dev_norm})")
     chunks = 2 * (g // effective_chunk(g, cfg.group_chunk))
-    if launches != 20 * chunks:
-        raise AssertionError(f"gather_conv kernel launched {launches} times, expected 20 x {chunks}")
+    expected = {name: per_chunk.get(name, 0) * chunks for name in kernels}
+    if launches != expected:
+        raise AssertionError(f"kernel launches {launches}, expected {expected} ({chunks} chunks)")
+    dropped = out["dropped_blocks"].tolist() if "dropped_blocks" in out else None
+    if dropped is not None and any(dropped):
+        raise AssertionError(f"blocks dropped per cloud {dropped} at block_caps {cfg.block_caps}")
     T = out["transform"].double().cpu()
     R = T[:3, :3]
     if not bool(torch.isfinite(T).all()):
@@ -235,26 +390,29 @@ def phase_slice(cfg, pair: dict, seed: int, device: str = "cuda") -> dict:
     det = float(torch.linalg.det(R))
     if ortho > 1e-4 or abs(det - 1) > 1e-4:
         raise AssertionError(f"transform not a proper rotation: |RtR-I| {ortho}, det {det}")
-    res = {"setup_s": setup_s, "register_pair_s": wall, "stages_s": timings,
-           "launches": launches, "chunk_launches": chunks, "ortho_err": ortho, "det": det,
-           "overlap": float(out["overlap"]), "mutual_matches": int(out["match_valid"].sum()),
+    res = {"engine": cfg.engine, "setup_s": setup_s, "register_pair_s": wall, "stages_s": timings,
+           "launches": launches, "chunks": chunks, "dropped_blocks": dropped, "ortho_err": ortho,
+           "det": det, "overlap": float(out["overlap"]), "mutual_matches": int(out["match_valid"].sum()),
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    counts = ", ".join(f"{n} {c} = {per_chunk[n]} x {chunks} chunks" for n, c in launches.items() if c)
     progress(
-        "phase 4 slice: register_pair " + f"{wall:.2f} s ("
+        f"{tag}: register_pair {wall:.2f} s ("
         + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
-        + f"), {launches} kernel launches = 20 x {chunks} chunks, |RtR-I| {ortho:.1e}, det {det:.6f}, "
-        f"{res['mutual_matches']} mutual matches, peak {res['peak_mem_gb']:.1f} GB")
+        + f"), launches {counts}, dropped blocks per cloud {dropped}, |RtR-I| {ortho:.1e}, "
+        f"det {det:.6f}, {res['mutual_matches']} mutual matches, peak {res['peak_mem_gb']:.1f} GB")
     return res
 
 
 def phase_reference(cfg, seed: int, device: str = "cuda") -> dict:
+    """``cfg``'s engine at a small configuration, on the GPU (kernels) and
+    on the CPU (plain versions): the descriptors must agree."""
     from roreg_tpu_torch.data.synthetic import synthetic_pair
     from roreg_tpu_torch.pipeline.registration import RegistrationPipeline
     from roreg_tpu_torch.weights import init_variables
 
     small = dataclasses.replace(
-        cfg, group_size=12, capacities=(4096, 2048, 1024, 512), conv1_kernel_size=5,
-        voxel_size=0.05, group_chunk=4, num_keypoints=256, keynum=128)
+        cfg, group_size=12, capacities=(4096, 2048, 1024, 512), block_caps=(512, 256, 128, 64),
+        conv1_kernel_size=5, voxel_size=0.05, group_chunk=4, num_keypoints=256, keynum=128)
     pair = synthetic_pair(seed + 1, points_per_cloud=6000, num_keypoints=256, surface_extent=1.6)
     variables = init_variables(small, seed)
     feats = {}
@@ -263,14 +421,16 @@ def phase_reference(cfg, seed: int, device: str = "cuda") -> dict:
         out = pipe.register_pair(pair["points0"], None, pair["keys0"], pair["points1"], None,
                                  pair["keys1"], generator=torch.Generator().manual_seed(seed))
         feats[dev] = (out["bb0"].float().cpu(), out["gf0"].float().cpu())
+        if "dropped_blocks" in out and bool(out["dropped_blocks"].any()):
+            raise AssertionError(f"small config drops blocks: {out['dropped_blocks'].tolist()}")
     errs = {}
     for i, name in enumerate(("bb", "gf")):
         d = (feats[device][i] - feats["cpu"][i]).abs()
         errs[name] = {"max": float(d.max()), "mean": float(d.mean())}
         if errs[name]["max"] > REFERENCE_ATOL or errs[name]["mean"] > REFERENCE_MEAN_ATOL:
             raise AssertionError(f"GPU and CPU describe disagree on {name}: {errs[name]}")
-    progress(f"phase 3b reference: small-config register_pair descriptors, GPU kernel vs CPU plain: {errs} "
-             f"(tol max {REFERENCE_ATOL}, mean {REFERENCE_MEAN_ATOL})")
+    progress(f"phase 3c reference ({cfg.engine} engine): small-config register_pair descriptors, "
+             f"GPU kernels vs CPU plain versions: {errs} (tol max {REFERENCE_ATOL}, mean {REFERENCE_MEAN_ATOL})")
     return errs
 
 
@@ -292,27 +452,49 @@ def main() -> int:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
         report = {"device": phase_device(), "build_s": phase_build()}
-        cfg = PipelineConfig(engine="gather", use_rm=False)
-        pair = synthetic_pair(args.seed, points_per_cloud=20000, num_keypoints=cfg.num_keypoints)
-        total, rows = phase_kernel(cfg, pair, args.seed)
+        gather_cfg = PipelineConfig(engine="gather", use_rm=False)
+        block_cfg = PipelineConfig(use_rm=False)  # the default engine: block
+        pair = synthetic_pair(args.seed, points_per_cloud=20000, num_keypoints=block_cfg.num_keypoints)
+        total, rows = phase_kernel(gather_cfg, pair, args.seed)
         report["kernel_shapes"] = rows
-        report["reference"] = phase_reference(cfg, args.seed)
-        report["slice"] = phase_slice(cfg, pair, args.seed)
+        block_totals, block_rows = phase_block_kernels(block_cfg, pair, args.seed)
+        report["block_kernel_shapes"] = block_rows
+        report["reference"] = {c.engine: phase_reference(c, args.seed) for c in (gather_cfg, block_cfg)}
+        report["slice"] = phase_slice(gather_cfg, pair, args.seed, {"gather_conv": 20}, "phase 4 gather slice")
+        report["block_slice"] = phase_slice(
+            block_cfg, pair, args.seed, {"halo_conv": 17, "block_gather": 4}, "phase 5 block slice")
         report["total_s"] = time.perf_counter() - T0
-        kernels = {"kernels": [{
+        entries = [{
             "name": "gather_conv",
             "route": "cuda",
             "source": "roreg_tpu_torch/csrc/gather_conv.cu",
             "replaces": "roreg_tpu/sparse/window_conv.py:140",
-            "launches": report["slice"]["launches"],
+            "launches": report["slice"]["launches"]["gather_conv"],
             "max_abs_err": total["err"],
             "ms": total["ms"],
             "plain_ms": total["plain_ms"],
             "bound_ms": total["bound_ms"],
             "bound_by": "operations" if total["t_ops"] >= total["t_bytes"] else "bytes",
             "library_ms": None,
-            "unit": "the 20 convs of one rotation chunk's batched forward",
-        }]}
+            "unit": "the 20 convs of one rotation chunk's batched forward (gather engine)",
+        }]
+        for name, source, replaces, library, unit in (
+            ("block_gather", "block_gather.cu", "scripts/experiment_pallas_gather.py:67",
+             "torch.nn.functional.embedding over the source with a zero row prepended",
+             "the 4 gathers of one rotation chunk's batched forward (block engine)"),
+            ("halo_conv", "halo_conv.cu", "scripts/experiment_pallas_primitives.py:110",
+             "torch.nn.functional.conv3d over the halo the plain version materialises (gather not timed)",
+             "the 17 same/down convs of one rotation chunk's batched forward (block engine)"),
+        ):
+            t = block_totals[name]
+            entries.append({
+                "name": name, "route": "cuda", "source": f"roreg_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": report["block_slice"]["launches"][name],
+                "max_abs_err": t["err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+                "library": library, "unit": unit,
+            })
+        kernels = {"kernels": entries}
         report.update(kernels)
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -13,29 +13,12 @@ the port's build directory at first use and bound with ``ctypes``.
 from __future__ import annotations
 
 import ctypes
-import os
-import shutil
-import threading
 
 import torch
 
-from roreg_tpu_torch.build import BUILD_DIR, compile_shared, needs_build
+from roreg_tpu_torch.build import CudaKernel
 
 __all__ = ["gather_conv", "gather_conv_plain", "gather_conv_kernel", "conv_work"]
-
-_SRC = os.path.join(
-    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "csrc", "gather_conv.cu"
-)
-_SO = os.path.join(BUILD_DIR, "libgather_conv.so")
-_NVCC_FLAGS = [
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-]
-
-
-def _nvcc() -> str:
-    cuda = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    return cuda if os.path.exists(cuda) else (shutil.which("nvcc") or "nvcc")
 
 
 def gather_conv_plain(
@@ -55,35 +38,17 @@ def gather_conv_plain(
     return g.reshape(m, -1) @ weights.float().reshape(-1, weights.shape[-1])
 
 
-class GatherConvKernel:
+class GatherConvKernel(CudaKernel):
     """The CUDA kernel's wrapper: builds and loads the library, checks its
     arguments, launches on the current stream, and counts launches in
     ``launches`` (one per launch, nowhere else)."""
 
-    def __init__(self) -> None:
-        self.launches = 0
-        self._lib: ctypes.CDLL | None = None
-        self._lock = threading.Lock()
+    source = "gather_conv.cu"
 
-    def build(self, force: bool = False) -> float:
-        """Compile ``csrc/gather_conv.cu`` for sm_90a if the library is
-        missing or stale (or ``force``); returns nvcc's seconds."""
-        if force or needs_build(_SRC, _SO):
-            return compile_shared([_nvcc()] + _NVCC_FLAGS, _SRC, _SO)
-        return 0.0
-
-    def _load(self) -> ctypes.CDLL:
-        with self._lock:
-            if self._lib is None:
-                self.build()
-                lib = ctypes.CDLL(_SO)
-                vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-                lib.gather_conv_bf16.restype = ci
-                lib.gather_conv_bf16.argtypes = [
-                    vp, vp, ci, vp, vp, i64, i64, ci, ci, ci, vp,
-                ]
-                self._lib = lib
-            return self._lib
+    def _bind(self, lib: ctypes.CDLL) -> None:
+        vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        lib.gather_conv_bf16.restype = ci
+        lib.gather_conv_bf16.argtypes = [vp, vp, ci, vp, vp, i64, i64, ci, ci, ci, vp]
 
     def __call__(
         self, feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor
@@ -124,8 +89,7 @@ class GatherConvKernel:
                 feats.data_ptr(), nbr.data_ptr(), nbr.element_size(),
                 weights.data_ptr(), out.data_ptr(), m, n, c, cout, k, stream,
             )
-        if rc != 0:
-            raise RuntimeError(f"gather_conv kernel launch failed: CUDA error {rc}")
+        self.check_rc("gather_conv", rc)
         self.launches += 1
         return out
 

@@ -2,7 +2,7 @@
 
 ``voxelhash.cpp`` (beside this file) is compiled with ``g++`` into the
 port's build directory at first use. A failed build raises: there is no
-numpy fallback.
+numpy fallback, for the gather pyramid or for the block pyramid.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ __all__ = [
     "unique_snapped_host",
     "neighbor_table_host",
     "neighbor_occupancy_host",
+    "build_block_pyramid_native",
 ]
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "voxelhash.cpp")
@@ -61,6 +62,13 @@ def _load() -> ctypes.CDLL:
         lib.neighbor_table16.argtypes = table_args + [i16p]
         lib.neighbor_occupancy.restype = None
         lib.neighbor_occupancy.argtypes = table_args + [u32p]
+        i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS")
+        lib.build_block_pyramid.restype = i64
+        lib.build_block_pyramid.argtypes = (
+            [f32p, i64, ctypes.c_float, i64p, i64]
+            + [u32p] * 4 + [i16p] * 7 + [i32p] * 3
+            + [i16p, i32p, f32p, i64, i32p]
+        )
         _lib = lib
         return lib
 
@@ -122,3 +130,27 @@ def neighbor_occupancy_host(
         out = np.zeros((len(dc), (k + 31) // 32), np.uint32)
     _load().neighbor_occupancy(sc, len(sc), dc, len(dc), off, k, step, out)
     return out
+
+
+def build_block_pyramid_native(points, voxel_size, out, keys=None, key_rows=None) -> int:
+    """Fill one rotation's 4-level block pyramid (a ``BlockPyramidDev`` of
+    writable numpy views, such as one slot of the packed payload) in one
+    GIL-free C++ call; with ``keys`` (K, 3) in the same rotated frame, also
+    write each keypoint's flat level-0 cell row into ``key_rows`` (K,)
+    int32. Returns the dropped block count (capacity or extent overflow,
+    largest keys dropped)."""
+    if len(out.levels) != 4:
+        raise ValueError(f"the block-pyramid builder takes 4 levels, got {len(out.levels)}")
+    pts = np.ascontiguousarray(points, np.float32)
+    caps = np.asarray([lvl.occ_words.shape[0] for lvl in out.levels], np.int64)
+    keys = np.empty((0, 3), np.float32) if keys is None else np.ascontiguousarray(keys, np.float32)
+    if key_rows is None:
+        key_rows = np.empty(len(keys), np.int32)
+    return int(_load().build_block_pyramid(
+        pts, len(pts), voxel_size, caps, 4,
+        *(lvl.occ_words for lvl in out.levels),
+        *(lvl.same_tbl for lvl in out.levels),
+        *out.down_tbl, *out.up_tbl,
+        out.l0_coords, out.origin,
+        keys, len(keys), key_rows,
+    ))

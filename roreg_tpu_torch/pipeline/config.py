@@ -29,8 +29,8 @@ class PipelineConfig:
     # forward per chunk in the port)
     group_chunk: int = 10
     rot_vmap: int = 1
-    # backbone execution engine: "block" (block-dense engine, not ported
-    # yet) or "gather" (row-gather engine over host kernel maps)
+    # backbone execution engine: "block" (block-dense engine over host
+    # block tables) or "gather" (row-gather engine over host kernel maps)
     engine: str = "block"
     block_caps: tuple[int, ...] = (3072, 1024, 512, 256)
     block_caps_fallback: tuple[int, ...] | None = None
@@ -76,12 +76,7 @@ class PipelineConfig:
 
 def check_supported(cfg: PipelineConfig) -> None:
     """Raise ``NotImplementedError`` for options this slice has not ported."""
-    if cfg.engine == "block":
-        raise NotImplementedError(
-            "engine='block' (block-dense describe) is not ported yet: "
-            "ROADMAP.md queue A, item A2; use engine='gather'"
-        )
-    if cfg.engine != "gather":
+    if cfg.engine not in ("block", "gather"):
         raise ValueError(f"unknown engine {cfg.engine!r}")
     if not cfg.host_maps:
         raise NotImplementedError(

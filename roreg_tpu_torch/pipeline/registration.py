@@ -7,6 +7,9 @@ Counterpart of ``roreg_tpu/pipeline/registration.py`` (``gf_apply``,
 descriptors, the ET residual quaternions and yohoo RANSAC. Side convention
 as in the reference: gt satisfies ``pts0 = R @ pts1 + t``.
 
+The describe runs the block engine (``engine="block"``, the default) or
+the gather engine (``engine="gather"``).
+
 Random draws are inputs: ``perm`` (the RANSAC hypothesis order) and, with
 ``use_rd=False``, ``noise0``/``noise1`` (the keypoint sampling priorities).
 When they are not given they are drawn from ``generator``.
@@ -27,7 +30,10 @@ from roreg_tpu_torch.models.gf import GroupFeatNetwork
 from roreg_tpu_torch.models.rd import RotationDetector
 from roreg_tpu_torch.pipeline import estimator as est
 from roreg_tpu_torch.pipeline.config import PipelineConfig, check_supported
-from roreg_tpu_torch.pipeline.extractor import extract_group_features_hostmaps
+from roreg_tpu_torch.pipeline.extractor import (
+    extract_group_features_blocks,
+    extract_group_features_hostmaps,
+)
 from roreg_tpu_torch.pipeline.matcher import (
     mutual_match,
     nms_sample,
@@ -101,14 +107,20 @@ class RegistrationPipeline:
     # ---- stages ----
 
     @torch.inference_mode()
-    def extract(self, points, point_mask, keypoints, timings=None) -> torch.Tensor:
-        """Cloud -> (K, G, 32) backbone group features."""
+    def extract(self, points, point_mask, keypoints, timings=None, dropped=None) -> torch.Tensor:
+        """Cloud -> (K, G, 32) backbone group features. On the block engine
+        the cloud's dropped block count is appended to ``dropped`` (a list)
+        when one is given."""
         pts = self._host(points)
         if point_mask is not None:
             pts = pts[self._host(point_mask).astype(bool)]
-        return extract_group_features_hostmaps(
-            self.nets["backbone"], pts, self._host(keypoints), self.cfg, self.device, timings
-        )
+        args = (self.nets["backbone"], pts, self._host(keypoints), self.cfg, self.device, timings)
+        if self.cfg.engine == "gather":
+            return extract_group_features_hostmaps(*args)
+        feats, n = extract_group_features_blocks(*args)
+        if dropped is not None:
+            dropped.append(n)
+        return feats
 
     @torch.inference_mode()
     def describe(self, points, point_mask, keypoints):
@@ -151,7 +163,9 @@ class RegistrationPipeline:
         diagnostics. Host arrays in, device tensors out. With ``timings``,
         the seconds of each stage are written into it (the device is
         synchronised at each stage boundary), and ``host_wait`` holds the
-        seconds describe waited for host pyramid builds."""
+        seconds describe waited for host pyramid builds. On the block
+        engine, ``dropped_blocks`` holds each cloud's dropped block count
+        (capacity overflow)."""
         cfg = self.cfg
         clock = [time.perf_counter()]
 
@@ -169,9 +183,10 @@ class RegistrationPipeline:
         kp_mask0 = ones0 if kp_mask0 is None else self._tensor(kp_mask0, torch.bool)
         kp_mask1 = ones1 if kp_mask1 is None else self._tensor(kp_mask1, torch.bool)
 
-        bb0 = self.extract(points0, mask0, keys0, timings)
+        dropped: list[int] = []
+        bb0 = self.extract(points0, mask0, keys0, timings, dropped)
         lap("describe0")
-        bb1 = self.extract(points1, mask1, keys1, timings)
+        bb1 = self.extract(points1, mask1, keys1, timings, dropped)
         lap("describe1")
 
         gf0 = gf_apply(self.nets["gf"], bb0, cfg)
@@ -205,7 +220,7 @@ class RegistrationPipeline:
             cfg.ransac_ird, cfg.max_iter,
         )
         lap("match_et_ransac")
-        return {
+        out = {
             "transform": T,
             "overlap": overlap,
             "matches": torch.stack([s0[m0], s1[m1]], -1),
@@ -219,3 +234,6 @@ class RegistrationPipeline:
             "bb0": bb0,
             "gf0": gf0,
         }
+        if dropped:
+            out["dropped_blocks"] = torch.tensor(dropped, device=self.device)
+        return out

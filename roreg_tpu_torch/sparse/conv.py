@@ -30,12 +30,13 @@ def unpack_occupancy(words: torch.Tensor, kernel_volume: int) -> torch.Tensor:
 
 
 class MaskedBatchNorm(BatchNorm):
-    """Batch norm with running statistics; pad rows (``mask`` False) are
-    zeroed (eps 1e-5)."""
+    """Batch norm with running statistics over the last axis; pad rows
+    (``mask`` False, the shape of ``x`` without its last axis) are zeroed
+    (eps 1e-5)."""
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         y = super().forward(x)
-        return torch.where(mask[:, None], y, torch.zeros((), dtype=y.dtype, device=y.device))
+        return torch.where(mask[..., None], y, torch.zeros((), dtype=y.dtype, device=y.device))
 
 
 class OccupancyConv(nn.Module):

@@ -30,6 +30,7 @@ from roreg_tpu_torch.models.gf import GroupFeatNetwork
 from roreg_tpu_torch.models.ops import GroupConv
 from roreg_tpu_torch.models.rd import RotationDetector
 from roreg_tpu_torch.pipeline.config import PipelineConfig
+from roreg_tpu_torch.sparse.block import BlockResUNet
 from roreg_tpu_torch.sparse.resunet import ResUNet
 
 __all__ = [
@@ -43,10 +44,13 @@ __all__ = [
 
 
 def build_modules(cfg: PipelineConfig) -> dict[str, nn.Module]:
-    """The slice's networks at the shapes ``cfg`` gives, on the CPU."""
+    """The slice's networks at the shapes ``cfg`` gives, on the CPU. The
+    backbone is the engine's (``cfg.engine``): both engines' ResUNets have
+    one parameter tree."""
     group = get_group(cfg.group_size)
+    backbone = {"block": BlockResUNet, "gather": ResUNet}[cfg.engine]
     return {
-        "backbone": ResUNet(
+        "backbone": backbone(
             cfg.backbone_variant, 32, cfg.conv1_kernel_size, True,
             cfg.backbone_compute_dtype,
         ),

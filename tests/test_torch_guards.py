@@ -30,6 +30,12 @@ def _port_sources():
 
 
 def test_no_jax_imports_in_port():
+    scanned = {os.path.relpath(p, REPO) for p in _port_sources()}
+    assert {
+        "roreg_tpu_torch/kernels/block_gather.py", "roreg_tpu_torch/kernels/halo_conv.py",
+        "roreg_tpu_torch/sparse/block.py", "roreg_tpu_torch/native/blockpyr.py",
+        "roreg_tpu_torch/pipeline/extractor.py", "chip_smoke.py",
+    } <= scanned
     bad = []
     for path in _port_sources():
         tree = ast.parse(open(path).read(), path)
@@ -75,7 +81,7 @@ def test_entry_point_needs_cuda_unless_cpu(monkeypatch):
 
 @pytest.mark.parametrize(
     "change,item",
-    [({"engine": "block"}, "A2"), ({"use_rm": True}, "A1"),
+    [({"use_rm": True}, "A1"),
      ({"estimator": "yohoc"}, "A3"), ({"host_maps": False}, "A9"),
      ({"backbone_variant": "ResUNetIN2C"}, "A8")],
 )
@@ -83,6 +89,21 @@ def test_unported_options_raise(change, item):
     cfg = PipelineConfig(**{**SMALL, **change})
     with pytest.raises(NotImplementedError, match=item):
         RegistrationPipeline(cfg, {}, device="cpu")
+
+
+def test_default_config_is_supported():
+    """The JAX package's default engine is ported: ``PipelineConfig(use_rm=False)``
+    with no other argument builds a pipeline on the block engine."""
+    from roreg_tpu_torch.pipeline.config import check_supported
+    from roreg_tpu_torch.sparse.block import BlockResUNet
+
+    cfg = PipelineConfig(use_rm=False)
+    assert cfg.engine == "block"
+    check_supported(cfg)
+    pipe = RegistrationPipeline(cfg, init_variables(cfg, 0), device="cpu")
+    assert isinstance(pipe.nets["backbone"], BlockResUNet)
+    with pytest.raises(ValueError, match="unknown engine"):
+        check_supported(PipelineConfig(use_rm=False, engine="dense"))
 
 
 def test_conv_window_is_accepted_and_ignored():
