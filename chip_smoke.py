@@ -5,31 +5,39 @@
 Phases, each ending in one flushed progress line on stderr:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: ``g++`` for the host voxel hash and ``nvcc`` for the three CUDA
-   kernels (gather_conv, block_gather, halo_conv), all started together,
-   from the sources in this checkout;
+2. build: ``g++`` for the host voxel hash and ``nvcc`` for the six CUDA
+   kernels (gather_conv, block_gather, halo_conv, up_conv, skip_concat,
+   cell_dense), all started together, from the sources in this checkout;
 3. kernel: the gather-conv kernel against its plain PyTorch version on the
    tables of one full-capacity host pyramid of the synthetic cloud, at the
-   11 ResUNetBN2C conv shapes, both as one rotation's int16 table and as the
-   main path's int32 table of a whole rotation chunk; error, CUDA-event times
-   and the card's bound for each;
-3b. block kernels: block_gather (bit-exact) and halo_conv (1e-3) against
+   11 ResUNetBN2C conv shapes, both as one rotation's table and as the main
+   path's table of a whole rotation chunk; error, CUDA-event times and the
+   card's bound for each;
+3b. block kernels: block_gather (bit-exact), halo_conv (1e-3), up_conv
+   (1e-3), skip_concat (bit-exact) and cell_dense (1e-5 relative) against
    their plain versions at every shape the block engine's ResUNetBN2C calls,
    on the tables of the main path's own upload of one chunk of cloud 0;
    error, times, bound and a library call's time for each;
 3c. reference: ``register_pair`` at a small configuration on the GPU and on
    the CPU (plain versions), gather engine and block engine, whose
-   descriptors must agree; this also brings up every library the slices
-   call, so phases 4 and 5 time a warm process;
+   descriptors must agree; and the RM matcher on both devices fed the same
+   sampled descriptors and keys, whose Sinkhorn matching scores and matches
+   must agree. This also brings up every library the slices call, so the
+   later phases time a warm process;
 4. gather slice: ``RegistrationPipeline.register_pair`` on a seeded
    20000-point pair at the full-width gather-engine configuration with
    seeded random weights;
 5. block slice: the same pair through ``PipelineConfig(use_rm=False)``, the
-   default (block) engine, full width; no block may be dropped.
+   block engine with the mutual-NN matcher, full width; no block may be
+   dropped;
+6. default chain: the same pair through ``PipelineConfig()``, the JAX
+   package's default (block engine, RM matcher with 100 Sinkhorn
+   iterations, top-match selection, ET, yohoo), full width; no block may be
+   dropped, and RM's matches must be a valid set.
 
 Each slice checks the descriptor shapes and norms, the launch counts of
 every kernel (zeroed just before the run: each kernel of the path ran
-once per conv per chunk, and no other kernel ran), and that the transform
+once per use per chunk, and no other kernel ran), and that the transform
 is a proper rigid motion. Then the script prints the kernel report as one
 JSON line, and as the last line ``{"ok": true, "device": {...}}``. Any
 failure raises and exits non-zero without that line; so does a run without
@@ -54,6 +62,7 @@ import torch
 
 # Hopper H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12  # FFMA outside the tensor cores
 PEAK_BYTES = 3.35e12
 # bf16 products are exact in f32, so kernel and plain version differ only by
 # the order of f32 summation (<= 6912 terms of outputs of magnitude <~ 10)
@@ -63,6 +72,12 @@ KERNEL_ATOL = 1e-3
 # devices' f32 sums differ in the last bits, and that flip propagates
 REFERENCE_ATOL = 1e-2
 REFERENCE_MEAN_ATOL = 5e-4
+# cell_dense: f32 FFMA against F.linear's f32 sums, <= 96 terms in another
+# order
+DENSE_RTOL = 1e-5
+# RM on the two devices fed the same descriptors: f32 GEMMs (no TF32) and
+# 100 Sinkhorn iterations summed in another order
+RM_SCORE_ATOL = 1e-3
 
 # (table, Cin, Cout, uses per forward) of ResUNetBN2C's 20 gather convs
 CONV_SHAPES = [
@@ -91,13 +106,29 @@ BLOCK_HALO_SHAPES = [
     ("same", 3, 256, 256, 2),
     ("same", 0, 64, 64, 2),
 ]
-# ... and (use, table level, row width R) of its 4 block gathers: conv1's
-# neighbour occupancy, and the coarse regions of the 3 up convs
+# ... (use, table level, row width R) of its 4 block gathers: conv1's
+# neighbour occupancy, and the coarse regions of the 3 up convs ...
 BLOCK_GATHER_SHAPES = [
     ("conv1", 0, 64),
     ("up", 2, 256),
     ("up", 1, 256),
     ("up", 0, 128),
+]
+# ... (layer, fine level, Cin, Cout) of its 3 up convs ...
+UP_SHAPES = [
+    ("conv4_tr", 2, 256, 128),
+    ("conv3_tr", 1, 256, 64),
+    ("conv2_tr", 0, 128, 64),
+]
+# ... (feeds, level, Ca, Cb) of its 2 skip concatenations ...
+SKIP_SHAPES = [
+    ("conv3_tr", 2, 128, 128),
+    ("conv2_tr", 1, 64, 64),
+]
+# ... and (layer, Ca, Cb, N, bias, relu) of its 2 level-0 cell-dense layers
+DENSE_SHAPES = [
+    ("conv1_tr", 64, 32, 64, False, True),
+    ("final", 64, 0, 32, True, False),
 ]
 
 # the run ends itself (exit code 1, tracebacks on stderr) after this long;
@@ -146,11 +177,15 @@ def phase_device() -> dict:
 def _kernels() -> dict:
     """name -> wrapper of every CUDA kernel of the port."""
     from roreg_tpu_torch.kernels.block_gather import block_gather_kernel
+    from roreg_tpu_torch.kernels.cell_dense import cell_dense_kernel
     from roreg_tpu_torch.kernels.gather_conv import gather_conv_kernel
     from roreg_tpu_torch.kernels.halo_conv import halo_conv_kernel
+    from roreg_tpu_torch.kernels.skip_concat import skip_concat_kernel
+    from roreg_tpu_torch.kernels.up_conv import up_conv_kernel
 
     return {"gather_conv": gather_conv_kernel, "block_gather": block_gather_kernel,
-            "halo_conv": halo_conv_kernel}
+            "halo_conv": halo_conv_kernel, "up_conv": up_conv_kernel,
+            "skip_concat": skip_concat_kernel, "cell_dense": cell_dense_kernel}
 
 
 def phase_build() -> dict:
@@ -191,7 +226,7 @@ def phase_kernel(cfg, pair: dict, seed: int, device: str = "cuda") -> tuple[dict
     for (kind, lvl), cin, cout, uses in CONV_SHAPES:
         src_lvl = lvl if kind in ("same", "down") else lvl + 1
         n_src = caps[src_lvl]
-        single = torch.from_numpy(np.ascontiguousarray(getattr(buf, kind)[lvl][0])).to(dev)
+        single = torch.from_numpy(getattr(buf, kind)[lvl][0].astype(np.int32)).to(dev)
         table_b = getattr(batched, kind)[lvl]
         w = (torch.randn(27, cin, cout, generator=gen, device=dev) * (2.0 / (27 * cin)) ** 0.5).bfloat16()
         feats_b = torch.randn(chunk * n_src, cin, generator=gen, device=dev).bfloat16()
@@ -228,7 +263,7 @@ def phase_kernel(cfg, pair: dict, seed: int, device: str = "cuda") -> tuple[dict
         rows.append(row)
         progress(
             f"  {row['table']:8s} M={row['M']:6d} N={n_src:6d} {cin:3d}->{cout:3d}: "
-            f"one-rotation int16 err {row['one']['max_abs_err']:.2e} kernel {row['one']['ms']:.3f} ms "
+            f"one-rotation err {row['one']['max_abs_err']:.2e} kernel {row['one']['ms']:.3f} ms "
             f"plain {row['one']['plain_ms']:.3f} ms | chunk of {chunk} int32 err {c['max_abs_err']:.2e} "
             f"kernel {c['ms']:.3f} ms (warm L2 {c['warm_l2_ms']:.3f}) plain {c['plain_ms']:.3f} ms bound {c['bound_ms']:.4f} ms "
             f"({c['bound_by']}), {c['tflops']:.1f} TFLOP/s (tol {KERNEL_ATOL})")
@@ -237,22 +272,25 @@ def phase_kernel(cfg, pair: dict, seed: int, device: str = "cuda") -> tuple[dict
     return total, rows
 
 
-def _bound(ops: int, nbytes: int) -> dict:
-    t_ops, t_bytes = ops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def _bound(ops: int, nbytes: int, peak_flops: float = PEAK_BF16_FLOPS) -> dict:
+    t_ops, t_bytes = ops / peak_flops * 1e3, nbytes / PEAK_BYTES * 1e3
     return {"ops_ms": t_ops, "bytes_ms": t_bytes, "bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
 def phase_block_kernels(cfg, pair: dict, seed: int, device: str = "cuda") -> tuple[dict, list]:
-    """block_gather and halo_conv against their plain versions at every
+    """The block engine's five kernels against their plain versions at every
     shape of one chunk's forward, on the main path's own upload of chunk 0
     of cloud 0. Returns (totals per kernel over one chunk's forward, rows)."""
     import torch.nn.functional as F
 
     from roreg_tpu_torch.kernels.block_gather import block_gather_kernel, block_gather_plain, gather_work
+    from roreg_tpu_torch.kernels.cell_dense import cell_dense_kernel, cell_dense_plain, dense_work
     from roreg_tpu_torch.kernels.halo_conv import (
         halo_conv_kernel, halo_conv_plain, halo_gather_plain, halo_work,
     )
+    from roreg_tpu_torch.kernels.skip_concat import concat_work, skip_concat_kernel, skip_concat_plain
+    from roreg_tpu_torch.kernels.up_conv import up_conv_kernel, up_conv_plain, up_work
     from roreg_tpu_torch.pipeline.extractor import (
         build_cloud_payloads, chunk_block_pyramid, effective_chunk, upload_cloud_payloads,
     )
@@ -270,23 +308,37 @@ def phase_block_kernels(cfg, pair: dict, seed: int, device: str = "cuda") -> tup
     gen = torch.Generator(device=dev).manual_seed(seed)
     l2_flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     keys = ("ms", "warm_l2_ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "bytes_ms", "err", "uses")
-    totals = {name: dict.fromkeys(keys, 0.0) for name in ("block_gather", "halo_conv")}
+    names = ("block_gather", "halo_conv", "up_conv", "skip_concat", "cell_dense")
+    totals = {name: dict.fromkeys(keys, 0.0) for name in names}
     rows = []
 
-    def measure(name, kernel, plain, library, work, uses, exact, label):
+    def measure(name, kernel, plain, library, work, uses, tol, label, peak=PEAK_BF16_FLOPS):
+        """tol: "exact", or ("abs" | "rel", limit). library: (one PyTorch
+        call computing the same function, what it is)."""
         out_k = kernel()
         out_p = plain()
         torch.cuda.synchronize()
-        err = float((out_k.float() - out_p.float()).abs().max())
-        if exact and not torch.equal(out_k, out_p):
-            raise AssertionError(f"{name} {label}: kernel differs from its plain version (max {err})")
-        if not np.isfinite(err) or err > KERNEL_ATOL:
-            raise AssertionError(f"{name} {label}: max abs err {err} > {KERNEL_ATOL}")
+        diff = (out_k.float() - out_p.float()).abs()
+        err = float(diff.max())
+        checked = err  # the error the tolerance applies to
+        if tol == "exact":
+            if not torch.equal(out_k, out_p):
+                raise AssertionError(f"{name} {label}: kernel differs from its plain version (max {err})")
+            limit = 0.0
+        else:
+            kind, limit = tol
+            if kind == "rel":
+                checked = float((diff / (out_p.float().abs() + 1)).max())
+            if not np.isfinite(checked) or checked > limit:
+                raise AssertionError(f"{name} {label}: max {kind} err {checked} > {limit}")
+        lib_fn, lib_what = library
         row = {"kernel": name, "shape": label, "uses": uses, "max_abs_err": err,
+               "checked_err": checked, "tolerance": tol,
                "ms": cuda_ms(kernel, reps=20, flush=l2_flush),
                "warm_l2_ms": cuda_ms(kernel, reps=20),
                "plain_ms": cuda_ms(plain, reps=3, warmup=1, flush=l2_flush),
-               "library_ms": cuda_ms(library, reps=5, warmup=1, flush=l2_flush), **_bound(*work)}
+               "library_ms": cuda_ms(lib_fn, reps=5, warmup=1, flush=l2_flush),
+               "library": lib_what, **_bound(*work, peak)}
         row["tflops"] = work[0] / row["ms"] / 1e9
         row["gbps"] = work[1] / row["ms"] / 1e6
         t = totals[name]
@@ -300,26 +352,29 @@ def phase_block_kernels(cfg, pair: dict, seed: int, device: str = "cuda") -> tup
                  f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), {row['gbps']:.0f} GB/s, "
                  f"{row['tflops']:.1f} TFLOP/s")
 
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev)
+
     for use, lvl, r in BLOCK_GATHER_SHAPES:
         if use == "conv1":
             tbl = pyr.levels[0].same_tbl
             src = occs[0].to(torch.bfloat16).contiguous()
         else:
             tbl = pyr.up_tbl[lvl]
-            src = torch.randn(occs[lvl + 1].numel(), r, generator=gen, device=dev).bfloat16()
+            src = randn(occs[lvl + 1].numel(), r).bfloat16()
         padded = torch.cat([torch.zeros_like(src[:1]), src])
         ids = tbl.long() + 1
         measure("block_gather", lambda: block_gather_kernel(src, tbl), lambda: block_gather_plain(src, tbl),
-                lambda: F.embedding(ids, padded), gather_work(src, tbl), 1, True,
-                f"{use}[{lvl}] B={tbl.shape[0]} R={r} Nsrc={src.shape[0]}")
+                (lambda: F.embedding(ids, padded),
+                 "torch.nn.functional.embedding over the source with a zero row prepended"),
+                gather_work(src, tbl), 1, "exact", f"{use}[{lvl}] B={tbl.shape[0]} R={r} Nsrc={src.shape[0]}")
 
     for kind, lvl, cin, cout, uses in BLOCK_HALO_SHAPES:
         span, stride = (6, 1) if kind == "same" else (9, 2)
         tbl = pyr.levels[lvl].same_tbl if kind == "same" else pyr.down_tbl[lvl]
         mask = occs[lvl] if kind == "same" else occs[lvl + 1]
-        feats = torch.randn(occs[lvl].shape[0], 64, cin, generator=gen, device=dev)
-        feats = (feats * occs[lvl][..., None]).bfloat16()
-        w = (torch.randn(27, cin, cout, generator=gen, device=dev) * (2.0 / (27 * cin)) ** 0.5).bfloat16()
+        feats = (randn(occs[lvl].shape[0], 64, cin) * occs[lvl][..., None]).bfloat16()
+        w = (randn(27, cin, cout) * (2.0 / (27 * cin)) ** 0.5).bfloat16()
         # the library yardstick: a dense conv3d over the halo the plain version
         # materialises (the gather is left out of its time)
         halo = halo_gather_plain(feats, tbl, stride).view(-1, span, span, span, cin)
@@ -327,9 +382,55 @@ def phase_block_kernels(cfg, pair: dict, seed: int, device: str = "cuda") -> tup
         w5 = w.view(3, 3, 3, cin, cout).permute(4, 3, 0, 1, 2).contiguous()
         measure("halo_conv", lambda: halo_conv_kernel(feats, tbl, w, mask, span, stride),
                 lambda: halo_conv_plain(feats, tbl, w, mask, span, stride),
-                lambda: F.conv3d(halo, w5, stride=stride), halo_work(tbl, mask, cin, cout, stride), uses,
-                False, f"{kind}[{lvl}] {cin}->{cout} B={tbl.shape[0]}")
+                (lambda: F.conv3d(halo, w5, stride=stride),
+                 "torch.nn.functional.conv3d over the halo the plain version materialises (gather not timed)"),
+                halo_work(tbl, mask, cin, cout, stride), uses, ("abs", KERNEL_ATOL),
+                f"{kind}[{lvl}] {cin}->{cout} B={tbl.shape[0]}")
         del halo
+
+    for layer, lvl, cin, cout in UP_SHAPES:
+        tbl, mask = pyr.up_tbl[lvl], occs[lvl]
+        coarse = (randn(occs[lvl + 1].shape[0], 64, cin) * occs[lvl + 1][..., None]).bfloat16()
+        reg = block_gather_plain(coarse.reshape(-1, cin), tbl)  # the main path's up-conv input
+        w = (randn(27, cin, cout) * (2.0 / (8 * cin)) ** 0.5).bfloat16()
+        # the library yardstick: one stride-2 transposed conv3d of each fine
+        # block's 3^3 coarse region (layouts made outside the timed span)
+        reg5 = reg.view(-1, 3, 3, 3, cin).permute(0, 4, 1, 2, 3).contiguous()
+        w5 = w.view(3, 3, 3, cin, cout).flip(0, 1, 2).permute(3, 4, 0, 1, 2).contiguous()
+        measure("up_conv", lambda: up_conv_kernel(reg, w, mask), lambda: up_conv_plain(reg, w, mask),
+                (lambda: F.conv_transpose3d(reg5, w5, stride=2, padding=1),
+                 "torch.nn.functional.conv_transpose3d, stride 2, over each fine block's 3^3 region "
+                 "(layouts made outside the timed span)"),
+                up_work(tbl, mask, cin, cout), 1, ("abs", KERNEL_ATOL),
+                f"{layer} [{lvl}] {cin}->{cout} B={tbl.shape[0]}")
+        del reg5
+
+    for layer, lvl, ca, cb in SKIP_SHAPES:
+        a = randn(occs[lvl].shape[0], 64, ca) * occs[lvl][..., None]
+        b = randn(occs[lvl].shape[0], 64, cb) * occs[lvl][..., None]
+        out_lib = torch.empty(a.shape[:-1] + (ca + cb,), dtype=torch.bfloat16, device=dev)
+        measure("skip_concat", lambda: skip_concat_kernel(a, b), lambda: skip_concat_plain(a, b),
+                (lambda: torch.cat([a, b], -1, out=out_lib), "torch.cat into a bf16 out= tensor"),
+                concat_work(a, b), 1, "exact", f"into {layer} [{lvl}] {ca}+{cb} B={a.shape[0]}")
+
+    for layer, ca, cb, n, has_bias, relu in DENSE_SHAPES:
+        a = torch.relu(randn(occs[0].shape[0] * 64, ca))
+        b = torch.relu(randn(occs[0].shape[0] * 64, cb)) if cb else None
+        weight = randn(n, ca + cb) / (ca + cb) ** 0.5
+        bias = randn(n) * 0.1 if has_bias else None
+        if b is None:
+            library = (lambda: F.linear(a, weight, bias), "torch.nn.functional.linear")
+        else:
+            x = torch.cat([a, b], -1)
+            library = (lambda: F.linear(x, weight, bias),
+                       "torch.nn.functional.linear over the concatenated input (concatenation and ReLU "
+                       "not timed)")
+        measure("cell_dense", lambda: cell_dense_kernel(a, b, weight, bias, relu),
+                lambda: cell_dense_plain(a, b, weight, bias, relu), library,
+                dense_work(a, b, weight, bias), 1, ("rel", DENSE_RTOL),
+                f"{layer} {ca}+{cb}->{n} rows={a.shape[0]}", PEAK_F32_FLOPS)
+        if b is not None:
+            del x
 
     for name, t in totals.items():
         t["bound_by"] = "operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes"
@@ -340,6 +441,28 @@ def phase_block_kernels(cfg, pair: dict, seed: int, device: str = "cuda") -> tup
             f"{t['library_ms']:.2f} ms, bound {t['bound_ms']:.3f} ms ({t['bound_by']}), max err {t['err']:.1e}"
             for n, t in totals.items()))
     return totals, rows
+
+
+def _check_rm_matches(out: dict, cfg) -> None:
+    """RM's matches are a valid set: keypoint indices in range, one-to-one
+    among the valid ones, and the top-match subset (``match_n``) inside
+    them at the size the rule gives."""
+    valid = out["match_valid"]
+    est = out["est_valid"]
+    pairs = out["matches"][valid]
+    n = int(valid.sum())
+    if n < 3:
+        raise AssertionError(f"RM found {n} matches")
+    if bool((pairs < 0).any()) or bool((pairs >= cfg.num_keypoints).any()):
+        raise AssertionError("RM matches index outside the keypoints")
+    for side in (0, 1):
+        if torch.unique(pairs[:, side]).numel() != n:
+            raise AssertionError(f"RM matches are not one-to-one on side {side}")
+    want = min(max(int(n * cfg.match_n), 10), n) if cfg.match_n < 0.999 else n
+    if bool((est & ~valid).any()) or int(est.sum()) != want:
+        raise AssertionError(f"top-match subset of {int(est.sum())} (expected {want} of {n} valid)")
+    if not bool(torch.isfinite(out["match_scores"]).all()):
+        raise AssertionError("RM matching scores are not finite")
 
 
 def phase_slice(cfg, pair: dict, seed: int, per_chunk: dict, tag: str, device: str = "cuda") -> dict:
@@ -390,30 +513,43 @@ def phase_slice(cfg, pair: dict, seed: int, per_chunk: dict, tag: str, device: s
     det = float(torch.linalg.det(R))
     if ortho > 1e-4 or abs(det - 1) > 1e-4:
         raise AssertionError(f"transform not a proper rotation: |RtR-I| {ortho}, det {det}")
+    if cfg.use_rm:
+        _check_rm_matches(out, cfg)
     res = {"engine": cfg.engine, "setup_s": setup_s, "register_pair_s": wall, "stages_s": timings,
            "launches": launches, "chunks": chunks, "dropped_blocks": dropped, "ortho_err": ortho,
-           "det": det, "overlap": float(out["overlap"]), "mutual_matches": int(out["match_valid"].sum()),
+           "det": det, "overlap": float(out["overlap"]), "use_rm": cfg.use_rm,
+           "matches": int(out["match_valid"].sum()), "est_valid": int(out["est_valid"].sum()),
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     counts = ", ".join(f"{n} {c} = {per_chunk[n]} x {chunks} chunks" for n, c in launches.items() if c)
     progress(
         f"{tag}: register_pair {wall:.2f} s ("
         + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
         + f"), launches {counts}, dropped blocks per cloud {dropped}, |RtR-I| {ortho:.1e}, "
-        f"det {det:.6f}, {res['mutual_matches']} mutual matches, peak {res['peak_mem_gb']:.1f} GB")
+        f"det {det:.6f}, {res['matches']} {'RM' if cfg.use_rm else 'mutual'} matches, "
+        f"{res['est_valid']} to RANSAC, peak {res['peak_mem_gb']:.1f} GB")
     return res
+
+
+def _small(cfg):
+    return dataclasses.replace(
+        cfg, group_size=12, capacities=(4096, 2048, 1024, 512), block_caps=(512, 256, 128, 64),
+        conv1_kernel_size=5, voxel_size=0.05, group_chunk=4, num_keypoints=256, keynum=128)
+
+
+def _small_pair(seed: int) -> dict:
+    from roreg_tpu_torch.data.synthetic import synthetic_pair
+
+    return synthetic_pair(seed + 1, points_per_cloud=6000, num_keypoints=256, surface_extent=1.6)
 
 
 def phase_reference(cfg, seed: int, device: str = "cuda") -> dict:
     """``cfg``'s engine at a small configuration, on the GPU (kernels) and
     on the CPU (plain versions): the descriptors must agree."""
-    from roreg_tpu_torch.data.synthetic import synthetic_pair
     from roreg_tpu_torch.pipeline.registration import RegistrationPipeline
     from roreg_tpu_torch.weights import init_variables
 
-    small = dataclasses.replace(
-        cfg, group_size=12, capacities=(4096, 2048, 1024, 512), block_caps=(512, 256, 128, 64),
-        conv1_kernel_size=5, voxel_size=0.05, group_chunk=4, num_keypoints=256, keynum=128)
-    pair = synthetic_pair(seed + 1, points_per_cloud=6000, num_keypoints=256, surface_extent=1.6)
+    small = _small(cfg)
+    pair = _small_pair(seed)
     variables = init_variables(small, seed)
     feats = {}
     for dev in (device, "cpu"):
@@ -432,6 +568,41 @@ def phase_reference(cfg, seed: int, device: str = "cuda") -> dict:
     progress(f"phase 3c reference ({cfg.engine} engine): small-config register_pair descriptors, "
              f"GPU kernels vs CPU plain versions: {errs} (tol max {REFERENCE_ATOL}, mean {REFERENCE_MEAN_ATOL})")
     return errs
+
+
+def phase_rm_reference(cfg, seed: int, device: str = "cuda") -> dict:
+    """RM (``use_rm=True``) at the small configuration on the GPU and on the
+    CPU, fed the same sampled descriptors and keys (the CPU pipeline's):
+    ``rm_apply``'s matches must be equal and its Sinkhorn matching scores
+    within ``RM_SCORE_ATOL``."""
+    from roreg_tpu_torch.pipeline.registration import RegistrationPipeline, rm_apply
+    from roreg_tpu_torch.weights import init_variables
+
+    small = _small(dataclasses.replace(cfg, use_rm=True))
+    pair = _small_pair(seed)
+    variables = init_variables(small, seed)
+    cpu = RegistrationPipeline(small, variables, device="cpu")
+    gpu = RegistrationPipeline(small, variables, device=device)
+    sampled = []
+    for i in (0, 1):
+        keys = torch.as_tensor(pair[f"keys{i}"], dtype=torch.float32)
+        _, gf = cpu.describe(pair[f"points{i}"], None, keys)
+        ones = torch.ones(keys.shape[0], dtype=torch.bool)
+        s = cpu.sample_keypoints(keys, cpu.detect(gf, ones), ones)
+        sampled += [gf[s], keys[s]]
+    gf0, k0, gf1, k1 = sampled
+    with torch.inference_mode():
+        ref = rm_apply(cpu.nets["rm"], gf0, gf1, k0, k1)
+        out = [x.cpu() for x in rm_apply(gpu.nets["rm"], *(t.to(device) for t in (gf0, gf1, k0, k1)))]
+    err = float((out[2] - ref[2]).abs().max())
+    res = {"keynum": small.keynum, "valid": int(ref[1].sum()), "max_score_err": err,
+           "matches_equal": bool(torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1]))}
+    if not res["matches_equal"] or not np.isfinite(err) or err > RM_SCORE_ATOL:
+        raise AssertionError(f"RM on the GPU and on the CPU disagree: {res}")
+    progress(f"phase 3c reference (RM): small-config rm_apply on the same sampled descriptors, GPU vs "
+             f"CPU: matches equal ({res['valid']} valid of {small.keynum}), max Sinkhorn score err "
+             f"{err:.1e} (tol {RM_SCORE_ATOL})")
+    return res
 
 
 def main() -> int:
@@ -454,15 +625,19 @@ def main() -> int:
         report = {"device": phase_device(), "build_s": phase_build()}
         gather_cfg = PipelineConfig(engine="gather", use_rm=False)
         block_cfg = PipelineConfig(use_rm=False)  # the default engine: block
+        default_cfg = PipelineConfig()  # the JAX package's default chain
         pair = synthetic_pair(args.seed, points_per_cloud=20000, num_keypoints=block_cfg.num_keypoints)
         total, rows = phase_kernel(gather_cfg, pair, args.seed)
         report["kernel_shapes"] = rows
         block_totals, block_rows = phase_block_kernels(block_cfg, pair, args.seed)
         report["block_kernel_shapes"] = block_rows
         report["reference"] = {c.engine: phase_reference(c, args.seed) for c in (gather_cfg, block_cfg)}
+        report["reference"]["rm"] = phase_rm_reference(default_cfg, args.seed)
+        block_per_chunk = {"halo_conv": 17, "block_gather": 4, "up_conv": 3, "skip_concat": 2, "cell_dense": 2}
         report["slice"] = phase_slice(gather_cfg, pair, args.seed, {"gather_conv": 20}, "phase 4 gather slice")
-        report["block_slice"] = phase_slice(
-            block_cfg, pair, args.seed, {"halo_conv": 17, "block_gather": 4}, "phase 5 block slice")
+        report["block_slice"] = phase_slice(block_cfg, pair, args.seed, block_per_chunk, "phase 5 block slice")
+        report["default_slice"] = phase_slice(
+            default_cfg, pair, args.seed, block_per_chunk, "phase 6 default chain (block engine + RM)")
         report["total_s"] = time.perf_counter() - T0
         entries = [{
             "name": "gather_conv",
@@ -476,23 +651,29 @@ def main() -> int:
             "bound_ms": total["bound_ms"],
             "bound_by": "operations" if total["t_ops"] >= total["t_bytes"] else "bytes",
             "library_ms": None,
+            "library": "none: no PyTorch call computes a gathered sum of per-offset GEMMs",
             "unit": "the 20 convs of one rotation chunk's batched forward (gather engine)",
         }]
-        for name, source, replaces, library, unit in (
-            ("block_gather", "block_gather.cu", "scripts/experiment_pallas_gather.py:67",
-             "torch.nn.functional.embedding over the source with a zero row prepended",
-             "the 4 gathers of one rotation chunk's batched forward (block engine)"),
-            ("halo_conv", "halo_conv.cu", "scripts/experiment_pallas_primitives.py:110",
-             "torch.nn.functional.conv3d over the halo the plain version materialises (gather not timed)",
-             "the 17 same/down convs of one rotation chunk's batched forward (block engine)"),
+        for name, replaces, unit in (
+            ("block_gather", "scripts/experiment_pallas_gather.py:67",
+             "the 4 gathers of one rotation chunk's batched forward"),
+            ("halo_conv", "scripts/experiment_pallas_primitives.py:110",
+             "the 17 same/down convs of one rotation chunk's batched forward"),
+            ("up_conv", "scripts/experiment_pallas_primitives.py:152",
+             "the 3 up convs (after their region gathers) of one rotation chunk's batched forward"),
+            ("skip_concat", "scripts/experiment_pallas_primitives.py:177",
+             "the 2 bf16 skip concatenations of one rotation chunk's batched forward"),
+            ("cell_dense", "scripts/experiment_pallas_primitives.py:75",
+             "conv1_tr and final of one rotation chunk's batched forward"),
         ):
             t = block_totals[name]
+            libraries = sorted({r["library"] for r in block_rows if r["kernel"] == name})
             entries.append({
-                "name": name, "route": "cuda", "source": f"roreg_tpu_torch/csrc/{source}",
-                "replaces": replaces, "launches": report["block_slice"]["launches"][name],
+                "name": name, "route": "cuda", "source": f"roreg_tpu_torch/csrc/{name}.cu",
+                "replaces": replaces, "launches": report["default_slice"]["launches"][name],
                 "max_abs_err": t["err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
-                "library": library, "unit": unit,
+                "library": "; ".join(libraries), "unit": unit + " (block engine)",
             })
         kernels = {"kernels": entries}
         report.update(kernels)

@@ -8,11 +8,15 @@ counterpart. It imports ``torch`` and numpy only.
 Implemented: inference registration of one scan pair through either
 describe engine, the block-dense engine (``engine="block"``, the default)
 or the gather engine (``engine="gather"``), over host-built maps, with the
-mutual-NN matcher (``use_rm=False``) and the yohoo estimator. On the GPU
-every gather conv of the gather engine runs the hand-written CUDA kernel
-of ``csrc/gather_conv.cu``; every same-level and stride-2 conv of the block
-engine runs ``csrc/halo_conv.cu`` and every block-table gather (conv1's
-occupancy, the up convs' coarse regions) ``csrc/block_gather.cu``.
+RM matcher (``use_rm=True``, the default) or the mutual-NN matcher
+(``use_rm=False``), and the yohoo estimator: ``PipelineConfig()`` with no
+argument runs. On the GPU every gather conv of the gather engine runs the
+hand-written CUDA kernel of ``csrc/gather_conv.cu``; on the block engine
+every same-level and stride-2 conv runs ``csrc/halo_conv.cu``, every
+block-table gather (conv1's occupancy, the up convs' coarse regions)
+``csrc/block_gather.cu``, the up convs' parity-class products
+``csrc/up_conv.cu``, the decoder's bf16 skip concatenations
+``csrc/skip_concat.cu`` and its per-cell dense layers ``csrc/cell_dense.cu``.
 
 Entry points run on CUDA unless the caller passes ``device="cpu"``; they
 raise when CUDA is absent and no CPU was asked for.

@@ -2,8 +2,11 @@
 //
 //   out[i, :] = sum_k feats[nbr[i, k], :] @ w[k]      (nbr[i, k] == -1 adds 0)
 //
-// feats (N, Cin) bf16, nbr (M, K) int16 or int32, w (K, Cin, Cout) bf16,
-// out (M, Cout) f32. Cin and Cout are multiples of 32, K <= 32.
+// feats (N, Cin) bf16, nbr (M, K) int32, w (K, Cin, Cout) bf16,
+// out (M, Cout) f32. Cin and Cout are multiples of 32, K <= 32. An entry
+// >= N traps (__trap(): the launch's next synchronisation raises a CUDA
+// error and the context is unusable), as an out-of-range index raises in
+// the plain version.
 //
 // Replaces the TPU kernel roreg_tpu/sparse/window_conv.py
 // window_gather_conv (Pallas body _kernel, lines 79-95). The TPU version
@@ -13,7 +16,7 @@
 //
 // What bounds it on an H100 (989 TFLOP/s bf16 dense, 3.35 TB/s HBM): a
 // conv does 2*Cin*Cout operations per valid (row, offset) entry and must
-// read each referenced source row (Cin bf16), the whole table (M*K*idx),
+// read each referenced source row (Cin bf16), the whole table (M*K*4),
 // w once, and write the (M, Cout) f32 output. At full capacity with every
 // entry valid, the 20 convs of one rotation would be about 147 GFLOP (about
 // 18 ms per pair of 60-rotation clouds at the bf16 peak). On the main path
@@ -55,10 +58,10 @@ constexpr int kMaxK = 32;      // largest kernel volume taken
 constexpr int kThreads = 128;  // 4 warps
 constexpr int kLDA = kBK + 8;  // bf16 row pitch of the gathered tile
 
-template <typename Idx, int BN>
+template <int BN>
 __global__ void __launch_bounds__(kThreads)
 gather_conv_kernel(const __nv_bfloat16* __restrict__ feats,
-                   const Idx* __restrict__ nbr,
+                   const int32_t* __restrict__ nbr,
                    const __nv_bfloat16* __restrict__ w,
                    float* __restrict__ out, int64_t m, int64_t n, int cin,
                    int cout, int kvol) {
@@ -76,14 +79,15 @@ gather_conv_kernel(const __nv_bfloat16* __restrict__ feats,
   const int n0 = blockIdx.y * BN;
 
   // The tile's index rows are contiguous in the table: read them coalesced.
-  // Entries outside [0, n) are treated as absent.
+  // A negative entry is absent; an entry >= n is an error.
   for (int e = tid; e < kBM * kvol; e += kThreads) {
     const int r = e / kvol;
     const int k = e - r * kvol;
     int src = -1;
     if (row0 + r < m) {
-      src = static_cast<int>(nbr[row0 * kvol + e]);
-      if (src >= n) src = -1;
+      src = nbr[row0 * kvol + e];
+      if (src >= n) __trap();
+      if (src < 0) src = -1;
     }
     idx_s[r * kMaxK + k] = src;
   }
@@ -156,20 +160,19 @@ gather_conv_kernel(const __nv_bfloat16* __restrict__ feats,
   }
 }
 
-template <typename Idx>
 void launch(const void* feats, const void* nbr, const void* w, void* out,
             int64_t m, int64_t n, int cin, int cout, int kvol,
             cudaStream_t stream) {
   const unsigned tiles = static_cast<unsigned>((m + kBM - 1) / kBM);
   const auto* f = static_cast<const __nv_bfloat16*>(feats);
-  const auto* t = static_cast<const Idx*>(nbr);
+  const auto* t = static_cast<const int32_t*>(nbr);
   const auto* wb = static_cast<const __nv_bfloat16*>(w);
   auto* o = static_cast<float*>(out);
   if (cout % 64 == 0) {
-    gather_conv_kernel<Idx, 64><<<dim3(tiles, cout / 64), kThreads, 0, stream>>>(
+    gather_conv_kernel<64><<<dim3(tiles, cout / 64), kThreads, 0, stream>>>(
         f, t, wb, o, m, n, cin, cout, kvol);
   } else {
-    gather_conv_kernel<Idx, 32><<<dim3(tiles, cout / 32), kThreads, 0, stream>>>(
+    gather_conv_kernel<32><<<dim3(tiles, cout / 32), kThreads, 0, stream>>>(
         f, t, wb, o, m, n, cin, cout, kvol);
   }
 }
@@ -181,20 +184,16 @@ extern "C" {
 // Launches on `stream` without synchronising. Returns cudaGetLastError()
 // (0 on success) or cudaErrorInvalidValue for arguments the kernel does not
 // take. The caller owns every buffer.
-int gather_conv_bf16(const void* feats, const void* nbr, int idx_bytes,
-                     const void* w, void* out, int64_t m, int64_t n, int cin,
-                     int cout, int kvol, void* stream) {
+int gather_conv_bf16(const void* feats, const void* nbr, const void* w,
+                     void* out, int64_t m, int64_t n, int cin, int cout,
+                     int kvol, void* stream) {
   if (cin % kBK != 0 || cout % 32 != 0 || kvol < 1 || kvol > kMaxK ||
-      (idx_bytes != 2 && idx_bytes != 4) || m < 0 || n < 0) {
+      m < 0 || n < 0 || n > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (m == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (idx_bytes == 2) {
-    launch<int16_t>(feats, nbr, w, out, m, n, cin, cout, kvol, s);
-  } else {
-    launch<int32_t>(feats, nbr, w, out, m, n, cin, cout, kvol, s);
-  }
+  launch(feats, nbr, w, out, m, n, cin, cout, kvol, s);
   return static_cast<int>(cudaGetLastError());
 }
 

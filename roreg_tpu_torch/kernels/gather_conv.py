@@ -1,7 +1,9 @@
 """Gather-GEMM sparse convolution: the Hopper kernel and its plain version.
 
 ``out[i] = sum_k feats[nbr[i, k]] @ weights[k]``, with -1 entries adding
-nothing: the function of ``roreg_tpu/sparse/conv.py`` ``gather_conv`` and of
+nothing (an entry >= N is an error: an IndexError in the plain version, a
+trap in the kernel, raised as a CUDA error at the next synchronisation):
+the function of ``roreg_tpu/sparse/conv.py`` ``gather_conv`` and of
 the TPU kernel ``roreg_tpu/sparse/window_conv.py`` ``window_gather_conv``.
 
 :func:`gather_conv` runs the plain PyTorch version for tensors on the CPU
@@ -48,7 +50,7 @@ class GatherConvKernel(CudaKernel):
     def _bind(self, lib: ctypes.CDLL) -> None:
         vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.gather_conv_bf16.restype = ci
-        lib.gather_conv_bf16.argtypes = [vp, vp, ci, vp, vp, i64, i64, ci, ci, ci, vp]
+        lib.gather_conv_bf16.argtypes = [vp, vp, vp, vp, i64, i64, ci, ci, ci, vp]
 
     def __call__(
         self, feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor
@@ -61,8 +63,8 @@ class GatherConvKernel(CudaKernel):
                 f"gather_conv kernel takes bf16 feats and weights, got "
                 f"{feats.dtype} and {weights.dtype}"
             )
-        if nbr.dtype not in (torch.int16, torch.int32):
-            raise TypeError(f"gather_conv kernel takes an int16/int32 table, got {nbr.dtype}")
+        if nbr.dtype != torch.int32:
+            raise TypeError(f"gather_conv kernel takes an int32 table, got {nbr.dtype}")
         if feats.dim() != 2 or nbr.dim() != 2 or weights.dim() != 3:
             raise ValueError("gather_conv kernel: feats (N, C), nbr (M, K), weights (K, C, Cout)")
         (n, c), (m, k), (kw, cw, cout) = feats.shape, nbr.shape, weights.shape
@@ -86,8 +88,8 @@ class GatherConvKernel(CudaKernel):
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             rc = lib.gather_conv_bf16(
-                feats.data_ptr(), nbr.data_ptr(), nbr.element_size(),
-                weights.data_ptr(), out.data_ptr(), m, n, c, cout, k, stream,
+                feats.data_ptr(), nbr.data_ptr(), weights.data_ptr(), out.data_ptr(),
+                m, n, c, cout, k, stream,
             )
         self.check_rc("gather_conv", rc)
         self.launches += 1

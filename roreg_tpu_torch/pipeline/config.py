@@ -10,7 +10,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-__all__ = ["PipelineConfig", "check_supported"]
+__all__ = ["PipelineConfig", "check_supported", "rm_row_block"]
 
 
 @dataclass(frozen=True)
@@ -83,11 +83,6 @@ def check_supported(cfg: PipelineConfig) -> None:
             "host_maps=False (device-built pyramids) is not ported: "
             "ROADMAP.md queue A, item A9; use host_maps=True"
         )
-    if cfg.use_rm:
-        raise NotImplementedError(
-            "use_rm=True (RM attention + Sinkhorn matcher) is not ported yet: "
-            "ROADMAP.md queue A, item A1; use use_rm=False"
-        )
     if cfg.estimator == "yohoc":
         raise NotImplementedError(
             "estimator='yohoc' is not ported yet: ROADMAP.md queue A, item A3"
@@ -99,3 +94,12 @@ def check_supported(cfg: PipelineConfig) -> None:
             f"backbone {cfg.backbone_variant!r} is not ported yet "
             "(ROADMAP.md queue A, item A8); the BN ResUNets are"
         )
+
+
+def rm_row_block(cfg: PipelineConfig) -> int | None:
+    """The RM matcher's kNN row block: ``rm_row_block`` where set, else 512
+    rows when ``keynum`` exceeds 1536 (peak attention memory block x N, not
+    M x N), else none."""
+    if cfg.rm_row_block is not None:
+        return cfg.rm_row_block
+    return 512 if cfg.keynum > 1536 else None

@@ -1,7 +1,8 @@
-"""Keypoint sampling (rank normalisation + spatial NMS) and mutual matching.
+"""Keypoint sampling (rank normalisation + spatial NMS), mutual matching
+and the RM chain's top-match selection.
 
-Counterparts of ``rank_normalize``, ``nms_sample`` and ``mutual_match`` in
-``roreg_tpu/pipeline/matcher.py``.
+Counterparts of ``rank_normalize``, ``nms_sample``, ``mutual_match`` and
+``top_match_subset`` in ``roreg_tpu/pipeline/matcher.py``.
 """
 
 from __future__ import annotations
@@ -10,7 +11,7 @@ import torch
 
 from roreg_tpu_torch.core.knn import knn, mutual_nn
 
-__all__ = ["rank_normalize", "top_k_indices", "nms_sample", "mutual_match"]
+__all__ = ["rank_normalize", "top_k_indices", "nms_sample", "mutual_match", "top_match_subset"]
 
 _BIG = 1e9
 
@@ -55,3 +56,23 @@ def mutual_match(feats0, feats1, mask0, mask1):
     inv0 = inv0 / (torch.linalg.norm(inv0, dim=-1, keepdim=True) + 1e-5)
     inv1 = inv1 / (torch.linalg.norm(inv1, dim=-1, keepdim=True) + 1e-5)
     return mutual_nn(inv0, inv1, mask0=mask0, mask1=mask1)
+
+
+def top_match_subset(scores: torch.Tensor, valid: torch.Tensor, match_n: float) -> torch.Tensor:
+    """RM top-match selection mask: keep the best ``match_n`` fraction (at
+    least 10) of the valid matches by score. ``match_n`` in [0.999, 1)
+    keeps them all (the reference's "use all" setting); ``match_n`` >= 1 is
+    a count. Equal scores keep the lower index first (a stable sort, as
+    ``jnp.argsort``)."""
+    nvalid = valid.sum()
+    if match_n >= 1.0:
+        num = nvalid.clamp_max(int(match_n))
+    elif match_n >= 0.999:
+        num = nvalid
+    else:
+        num = torch.minimum((nvalid * match_n).to(torch.int32).clamp_min(10), nvalid)
+    s = torch.where(valid, scores, torch.full_like(scores, -_BIG))
+    order = torch.argsort(-s, stable=True)
+    rank = torch.empty_like(order)
+    rank[order] = torch.arange(s.shape[0], device=s.device)
+    return valid & (rank < num)

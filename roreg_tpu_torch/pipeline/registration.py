@@ -2,10 +2,12 @@
 estimate, on the compute device.
 
 Counterpart of ``roreg_tpu/pipeline/registration.py`` (``gf_apply``,
-``rd_apply``, ``et_apply`` and ``RegistrationPipeline``) on the
-``use_rm=False`` branch: mutual nearest neighbours of group-mean
-descriptors, the ET residual quaternions and yohoo RANSAC. Side convention
-as in the reference: gt satisfies ``pts0 = R @ pts1 + t``.
+``rd_apply``, ``rm_apply``, ``et_apply`` and ``RegistrationPipeline``):
+the RM matcher with its top-match selection (``use_rm=True``, the
+default) or mutual nearest neighbours of group-mean descriptors
+(``use_rm=False``), then the ET residual quaternions and yohoo RANSAC.
+Side convention as in the reference: gt satisfies ``pts0 = R @ pts1 + t``,
+and RM and ET take cloud 1 as their source.
 
 The describe runs the block engine (``engine="block"``, the default) or
 the gather engine (``engine="gather"``).
@@ -28,6 +30,7 @@ from roreg_tpu_torch.device import resolve_device
 from roreg_tpu_torch.models.et import EquivariantTransformer
 from roreg_tpu_torch.models.gf import GroupFeatNetwork
 from roreg_tpu_torch.models.rd import RotationDetector
+from roreg_tpu_torch.models.rm import RotationCoherenceMatcher
 from roreg_tpu_torch.pipeline import estimator as est
 from roreg_tpu_torch.pipeline.config import PipelineConfig, check_supported
 from roreg_tpu_torch.pipeline.extractor import (
@@ -39,10 +42,11 @@ from roreg_tpu_torch.pipeline.matcher import (
     nms_sample,
     rank_normalize,
     top_k_indices,
+    top_match_subset,
 )
 from roreg_tpu_torch.weights import build_modules, load_variables
 
-__all__ = ["RegistrationPipeline", "gf_apply", "rd_apply", "et_apply"]
+__all__ = ["RegistrationPipeline", "gf_apply", "rd_apply", "rm_apply", "et_apply"]
 
 
 def _chunks(n: int, bs: int):
@@ -62,6 +66,26 @@ def rd_apply(rd: RotationDetector, eqv: torch.Tensor, mask: torch.Tensor) -> tor
     return rank_normalize(rd(eqv), mask)
 
 
+def rm_apply(
+    rm: RotationCoherenceMatcher, eqv0: torch.Tensor, eqv1: torch.Tensor,
+    keys0: torch.Tensor, keys1: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The RM matcher on the sampled keypoint sets, with the reference's
+    side swap (source = cloud 1). Returns matches (M, 2) [index into
+    sample 0, index into sample 1], their validity (M,) and their Sinkhorn
+    matching scores (M,)."""
+    m = eqv1.shape[0]
+    out = rm(
+        eqv1[None], eqv0[None], keys1[None], keys0[None],
+        torch.ones((1, m), dtype=torch.bool, device=eqv1.device),
+        torch.ones((1, eqv0.shape[0]), dtype=torch.bool, device=eqv0.device),
+    )
+    matches0 = out["matches0"][0]  # index into sample 0, -1 where invalid
+    valid = matches0 >= 0
+    pair = torch.stack([torch.where(valid, matches0, 0), torch.arange(m, device=eqv1.device)], -1)
+    return pair, valid, out["matching_scores0"][0]
+
+
 def et_apply(
     et: EquivariantTransformer, bb0_m, bb1_m, gf0_m, gf1_m, idx, cfg: PipelineConfig
 ) -> torch.Tensor:
@@ -78,8 +102,9 @@ class RegistrationPipeline:
     """Holds the networks of the ported slice and registers scan pairs.
 
     ``variables``: the JAX package's variables as nested dicts of numpy
-    arrays, with keys ``backbone``, ``gf``, ``rd``, ``et`` (others, such
-    as ``rm``, are ignored). ``device``: CUDA unless ``"cpu"`` is passed.
+    arrays, with keys ``backbone``, ``gf``, ``rd``, ``et`` and, with
+    ``use_rm=True``, ``rm`` (others are ignored). ``device``: CUDA unless
+    ``"cpu"`` is passed.
     """
 
     def __init__(self, cfg: PipelineConfig, variables: dict[str, Any], device=None):
@@ -199,13 +224,18 @@ class RegistrationPipeline:
 
         gf0_s, gf1_s = gf0[s0], gf1[s1]
         k0_s, k1_s = k0[s0], k1[s1]
-        ones = torch.ones(cfg.keynum, dtype=torch.bool, device=self.device)
-        nn01, mvalid = mutual_match(gf0_s, gf1_s, ones, ones)
-        m0 = torch.arange(cfg.keynum, device=self.device)
-        m1 = nn01
-        mscores = torch.ones(cfg.keynum, device=self.device)
+        if cfg.use_rm:
+            pair, mvalid, mscores = rm_apply(self.nets["rm"], gf0_s, gf1_s, k0_s, k1_s)
+            m0, m1 = pair[:, 0], pair[:, 1]
+            est_valid = top_match_subset(mscores, mvalid, cfg.match_n)
+        else:
+            ones = torch.ones(cfg.keynum, dtype=torch.bool, device=self.device)
+            nn01, mvalid = mutual_match(gf0_s, gf1_s, ones, ones)
+            m0 = torch.arange(cfg.keynum, device=self.device)
+            m1 = nn01
+            mscores = torch.ones(cfg.keynum, device=self.device)
+            est_valid = mvalid
         keys_m0, keys_m1 = k0_s[m0], k1_s[m1]
-        est_valid = mvalid
 
         dr = est.dr_index(gf0_s[m0], gf1_s[m1], self.cayley)
         quats = et_apply(

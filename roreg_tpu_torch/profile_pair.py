@@ -1,9 +1,10 @@
 """Where one full-width ``register_pair`` spends its device time.
 
-    python -m roreg_tpu_torch.profile_pair [--engine block] [--seed 0] [--out report.json]
+    python -m roreg_tpu_torch.profile_pair [--engine block] [--matcher rm] [--seed 0] [--out report.json]
 
-Runs the smoke's seeded 20000-point pair through ``PipelineConfig(use_rm=False)``
-(with ``--engine``) on the GPU with random weights from the seed: one warm-up
+Runs the smoke's seeded 20000-point pair through ``PipelineConfig`` with
+``--engine`` and ``--matcher`` (``rm``, the default chain, or ``mutual``,
+``use_rm=False``) on the GPU with random weights from the seed: one warm-up
 pair, then one pair under ``torch.profiler``. Prints the card's name and
 power limit, the pair's wall time and stage times, the device busy share
 (the union of all kernel and copy intervals over the pair's wall span), and
@@ -37,6 +38,7 @@ def _union_us(intervals: list[tuple[float, float]]) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--engine", default="block", choices=("block", "gather"))
+    ap.add_argument("--matcher", default="rm", choices=("rm", "mutual"))
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--top", type=int, default=15)
     ap.add_argument("--out", default=None)
@@ -57,7 +59,7 @@ def main() -> int:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     print(smi, flush=True)
-    cfg = PipelineConfig(use_rm=False, engine=args.engine)
+    cfg = PipelineConfig(use_rm=args.matcher == "rm", engine=args.engine)
     pair = synthetic_pair(args.seed, points_per_cloud=20000, num_keypoints=cfg.num_keypoints)
     pipe = RegistrationPipeline(cfg, init_variables(cfg, args.seed))
     inputs = (pair["points0"], None, pair["keys0"], pair["points1"], None, pair["keys1"])
@@ -92,13 +94,13 @@ def main() -> int:
         rec[1] += 1
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[: args.top]
     report = {
-        "device": smi, "engine": args.engine, "wall_s": wall_s, "stages_s": timings,
+        "device": smi, "engine": args.engine, "matcher": args.matcher, "wall_s": wall_s, "stages_s": timings,
         "span_s": span.elapsed_us() / 1e6, "device_busy_s": busy_us / 1e6,
         "device_busy_share": busy_us / span.elapsed_us(),
         "device_kernel_sum_s": sum(v[0] for v in by_name.values()) / 1e6,
         "top": [{"name": n[:160], "device_ms": v[0] / 1e3, "calls": v[1]} for n, v in top],
     }
-    print(f"{args.engine} engine: register_pair {wall_s:.3f} s ("
+    print(f"{args.engine} engine, {args.matcher} matcher: register_pair {wall_s:.3f} s ("
           + ", ".join(f"{k} {v:.3f} s" for k, v in timings.items())
           + f"); device busy {report['device_busy_s']:.3f} s of {report['span_s']:.3f} s "
           f"({100 * report['device_busy_share']:.1f} %)", flush=True)

@@ -11,8 +11,8 @@ types:
   each output block's span^3 halo and a dense 3^3 conv over it, both in the
   hand-written Hopper kernel of ``kernels/halo_conv.py`` on the GPU;
 * transposed (``conv_up``): a gather of the 27 coarse cells of each fine
-  block's 3^3 region (``kernels/block_gather.py``), then 8 parity-class
-  GEMMs in ``torch.matmul``, as the JAX package leaves them to ``jnp.dot``;
+  block's 3^3 region (``kernels/block_gather.py``), then its 8 parity-class
+  products, permutation and mask in ``kernels/up_conv.py``;
 * the first 7^3 conv over FCGF's all-ones input (``conv1_occupancy``): a
   gather of the neighbour blocks' occupancy (``block_gather``), then one
   GEMM with the folded (27*64, 64*Cout) weight in ``torch.matmul``.
@@ -20,7 +20,12 @@ types:
 Every conv returns f32 (B, 64, Cout), zero at unoccupied cells; features
 and weights are cast to ``compute_dtype`` where the JAX code casts them, and
 the matmuls take bf16 operands into f32 products (the JAX package's
-``preferred_element_type=jnp.float32``).
+``preferred_element_type=jnp.float32``). The decoder's first two skip
+concatenations write the bf16 input of the up conv that follows
+(``kernels/skip_concat.py``) when that conv computes in bf16, and the
+per-cell dense layers ``conv1_tr`` and ``final`` run in f32 through
+``kernels/cell_dense.py``, ``conv1_tr`` reading its two inputs as two
+K-slices in place of their concatenation.
 
 :class:`BlockResUNet` has exactly the parameter names of
 :class:`roreg_tpu_torch.sparse.resunet.ResUNet`, so one set of converted
@@ -38,8 +43,11 @@ import torch
 from torch import nn
 
 from roreg_tpu_torch.kernels.block_gather import block_gather
+from roreg_tpu_torch.kernels.cell_dense import cell_dense
 from roreg_tpu_torch.kernels.halo_conv import BLOCK, CELLS, halo_conv
 from roreg_tpu_torch.kernels.halo_conv import halo_maps as _halo_maps
+from roreg_tpu_torch.kernels.skip_concat import skip_concat
+from roreg_tpu_torch.kernels.up_conv import up_conv
 from roreg_tpu_torch.sparse.conv import MaskedBatchNorm, _dtype
 from roreg_tpu_torch.sparse.resunet import RESUNET_VARIANTS, offset_table
 
@@ -147,48 +155,6 @@ def flatten_block_batch(tree: BlockPyramidDev, block_caps: tuple[int, ...]) -> B
     )
 
 
-def _up_parity_classes():
-    """Per-parity-class static maps for the transposed conv (a copy of the
-    JAX package's ``_up_parity_classes``). For a fixed out-cell parity the
-    valid kernel offsets are fixed (even axis: d = 0; odd axis: d = +-1).
-
-    Returns 8 tuples (cells (8,), wrows (K_c,), ridx (8, K_c)): x-major
-    cell ids of the class, kernel-offset rows of w, coarse region cell per
-    (cell, tap).
-    """
-    classes = []
-    for px in range(2):
-        for py in range(2):
-            for pz in range(2):
-                pars = (px, py, pz)
-                axis_d = [[0] if p == 0 else [-1, 1] for p in pars]
-                axis_u = [[u for u in range(BLOCK) if u % 2 == p] for p in pars]
-                cells = [
-                    ux * 16 + uy * 4 + uz
-                    for ux in axis_u[0] for uy in axis_u[1] for uz in axis_u[2]
-                ]
-                wrows = [
-                    (dx + 1) * 9 + (dy + 1) * 3 + (dz + 1)
-                    for dx in axis_d[0] for dy in axis_d[1] for dz in axis_d[2]
-                ]
-                ridx = []
-                for c in cells:
-                    ux, uy, uz = c // 16, (c // 4) % 4, c % 4
-                    ridx.append([
-                        ((ux + dx) // 2) * 9 + ((uy + dy) // 2) * 3 + (uz + dz) // 2
-                        for dx in axis_d[0] for dy in axis_d[1] for dz in axis_d[2]
-                    ])
-                classes.append((
-                    np.asarray(cells, np.int32),
-                    np.asarray(wrows, np.int32),
-                    np.asarray(ridx, np.int32),
-                ))
-    return classes
-
-
-_UP_CLASSES = _up_parity_classes()
-# class-concatenated cell order -> x-major cell order
-_UP_CELL_INV = np.argsort(np.concatenate([c for c, _, _ in _UP_CLASSES])).astype(np.int32)
 _CONV1_DENSE_MAPS: dict = {}
 
 
@@ -267,21 +233,14 @@ def conv_down(feats_src, down_tbl, w, dst_cell_mask, compute_dtype=None):
 
 def conv_up(feats_coarse, up_tbl, w, dst_cell_mask, compute_dtype=None):
     """Transposed conv level l+1 -> l: out[u] = sum over d with u+d even of
-    coarse[(u+d)/2] @ w[d], as 8 parity-class im2col GEMMs over the
-    gathered (B, 27, Cin) coarse region."""
-    bf = up_tbl.shape[0]
-    cin, cout = w.shape[1], w.shape[2]
+    coarse[(u+d)/2] @ w[d]: a gather of each fine block's (B, 27, Cin)
+    coarse region (``block_gather``), then its 8 parity-class products
+    (``kernels/up_conv.py``)."""
+    cin = w.shape[1]
     if compute_dtype is not None:
         feats_coarse, w = feats_coarse.to(compute_dtype), w.to(compute_dtype)
     reg = block_gather(feats_coarse.reshape(-1, cin).contiguous(), up_tbl)  # (bf, 27, cin)
-    outs = []
-    for cells, wrows, ridx in _UP_CLASSES:
-        k = len(wrows)
-        im = reg[:, _index(ridx.reshape(-1), reg.device)].reshape(bf * len(cells), k * cin)
-        wc = w[_index(wrows, w.device)].reshape(k * cin, cout)
-        outs.append((im.float() @ wc.float()).reshape(bf, len(cells), cout))
-    out = torch.cat(outs, 1)[:, _index(_UP_CELL_INV, reg.device)]
-    return _masked(out, dst_cell_mask)
+    return up_conv(reg, w.contiguous(), dst_cell_mask)
 
 
 class _BlockConv(nn.Module):
@@ -296,6 +255,13 @@ class _BlockConv(nn.Module):
 
     def forward(self, feats, tbl, cell_mask):
         return self.conv(feats, tbl, self.kernel, cell_mask, self.compute_dtype)
+
+    def cat_input(self, x, skip):
+        """This conv's input ``[x, skip]``: written in bf16 where the conv
+        computes in bf16 (its first step is that cast), else f32."""
+        if self.compute_dtype == torch.bfloat16:
+            return skip_concat(x, skip)
+        return torch.cat([x, skip], -1)
 
 
 class _Conv1Occ(nn.Module):
@@ -333,7 +299,8 @@ class BlockResUNet(nn.Module):
     (B_l, 64, C); the forward returns (B_0 * 64, out_channels) rows, unit
     norm at occupied level-0 cells and zero elsewhere, in the flat cell-row
     order of the host-resolved keypoint rows. 17 halo convs (14 same, 3
-    down), 3 up convs and conv1: 4 block gathers."""
+    down), 3 up convs and conv1: 4 block gathers; 3 up convs, 2 skip
+    concatenations and 2 cell-dense layers."""
 
     def __init__(
         self,
@@ -399,17 +366,16 @@ class BlockResUNet(nn.Module):
         x = self.norm4_tr(self.conv4_tr(x, pyr.up_tbl[2], occs[2]), occs[2])
         x = torch.relu(self.block4_tr(x, same[2], occs[2]))
 
-        x = torch.cat([x, out_s4], -1)
+        x = self.conv3_tr.cat_input(x, out_s4)
         x = self.norm3_tr(self.conv3_tr(x, pyr.up_tbl[1], occs[1]), occs[1])
         x = torch.relu(self.block3_tr(x, same[1], occs[1]))
 
-        x = torch.cat([x, out_s2], -1)
+        x = self.conv2_tr.cat_input(x, out_s2)
         x = self.norm2_tr(self.conv2_tr(x, pyr.up_tbl[0], occs[0]), occs[0])
         x = torch.relu(self.block2_tr(x, same[0], occs[0]))
 
-        x = torch.cat([x, out_s1], -1)
-        x = torch.relu(self.conv1_tr(x))
-        x = self.final(x)
+        x = cell_dense(x, out_s1, self.conv1_tr.weight, relu=True)
+        x = cell_dense(x, None, self.final.weight, self.final.bias)
         if self.normalize_feature:
             x = x * torch.rsqrt((x * x).sum(-1, keepdim=True) + 1e-12)
         return _masked(x, occs[0]).reshape(-1, x.shape[-1])

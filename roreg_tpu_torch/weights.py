@@ -10,9 +10,11 @@ onto the port's modules, whose submodules carry the flax names:
 * batch norm: ``params/{scale,bias}`` and ``batch_stats/{mean,var}`` <->
   ``weight``, ``bias``, ``running_mean``, ``running_var``.
 
-Networks the port has no module for yet (RM) convert to flat state_dicts
-with :func:`flatten_variables`. Nothing here imports flax or orbax: callers
-restore checkpoints themselves and pass numpy arrays.
+* RM's learned dustbin score: ``params/bin_score`` <-> ``bin_score``.
+
+Nothing here imports flax or orbax: callers restore checkpoints themselves
+and pass numpy arrays; :func:`flatten_variables` gives any tree as a flat
+state_dict.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ from roreg_tpu_torch.models.et import EquivariantTransformer
 from roreg_tpu_torch.models.gf import GroupFeatNetwork
 from roreg_tpu_torch.models.ops import GroupConv
 from roreg_tpu_torch.models.rd import RotationDetector
-from roreg_tpu_torch.pipeline.config import PipelineConfig
+from roreg_tpu_torch.models.rm import RotationCoherenceMatcher
+from roreg_tpu_torch.pipeline.config import PipelineConfig, rm_row_block
 from roreg_tpu_torch.sparse.block import BlockResUNet
 from roreg_tpu_torch.sparse.resunet import ResUNet
 
@@ -44,12 +47,12 @@ __all__ = [
 
 
 def build_modules(cfg: PipelineConfig) -> dict[str, nn.Module]:
-    """The slice's networks at the shapes ``cfg`` gives, on the CPU. The
-    backbone is the engine's (``cfg.engine``): both engines' ResUNets have
-    one parameter tree."""
+    """The pipeline's networks at the shapes ``cfg`` gives, on the CPU: the
+    backbone of the engine (``cfg.engine``; both engines' ResUNets have one
+    parameter tree), GF, RD, ET, and RM when ``cfg.use_rm``."""
     group = get_group(cfg.group_size)
     backbone = {"block": BlockResUNet, "gather": ResUNet}[cfg.engine]
-    return {
+    nets = {
         "backbone": backbone(
             cfg.backbone_variant, 32, cfg.conv1_kernel_size, True,
             cfg.backbone_compute_dtype,
@@ -58,6 +61,12 @@ def build_modules(cfg: PipelineConfig) -> dict[str, nn.Module]:
         "rd": RotationDetector(group),
         "et": EquivariantTransformer(group),
     }
+    if cfg.use_rm:
+        nets["rm"] = RotationCoherenceMatcher(
+            group, coor_norm_step=cfg.coor_norm_step, sinkhorn_iters=cfg.sinkhorn_iters,
+            row_block=rm_row_block(cfg),
+        )
+    return nets
 
 
 def _leaves(module: nn.Module) -> Iterator[tuple[torch.Tensor, tuple[str, ...], bool]]:
@@ -76,6 +85,8 @@ def _leaves(module: nn.Module) -> Iterator[tuple[torch.Tensor, tuple[str, ...], 
             yield m.running_var, ("batch_stats",) + path + ("var",), False
         elif "kernel" in m._parameters:
             yield m.kernel, ("params",) + path + ("kernel",), False
+        elif "bin_score" in m._parameters:
+            yield m.bin_score, ("params",) + path + ("bin_score",), False
 
 
 def flatten_variables(tree: dict, prefix: tuple[str, ...] = ()) -> dict[str, np.ndarray]:
@@ -141,10 +152,11 @@ def _truncated_normal(rng: np.random.Generator, shape, std: float) -> np.ndarray
 
 
 def init_variables(cfg: PipelineConfig, seed: int = 0) -> dict[str, dict]:
-    """Random variables for the slice's networks, drawn with numpy from
+    """Random variables for the pipeline's networks, drawn with numpy from
     ``seed`` at the JAX package's initialiser scales: fan-in truncated
     normals (scale 2 for sparse and group convs, 1 for dense layers), zero
-    biases, unit norms and statistics."""
+    biases, unit norms and statistics, and RM's dustbin score at its
+    initial 0.2."""
     rng = np.random.default_rng(seed)
     out = {}
     for name, net in build_modules(cfg).items():
@@ -163,6 +175,8 @@ def init_variables(cfg: PipelineConfig, seed: int = 0) -> dict[str, dict]:
                 a = _truncated_normal(rng, shape, np.sqrt(scale / fan_in))
             elif leaf in ("scale", "var"):
                 a = np.ones(shape, np.float32)
+            elif leaf == "bin_score":  # the module's init_bin_score
+                a = t.detach().numpy().astype(np.float32)
             else:
                 a = np.zeros(shape, np.float32)
             flat["/".join(path)] = a

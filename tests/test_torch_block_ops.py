@@ -12,6 +12,7 @@ import roreg_tpu.sparse.block as jblock  # noqa: E402
 from roreg_tpu.native.blockpyr import build_block_pyramid_host  # noqa: E402
 from roreg_tpu_torch.kernels.block_gather import block_gather_plain  # noqa: E402
 from roreg_tpu_torch.kernels.halo_conv import halo_conv_plain, halo_maps  # noqa: E402
+from roreg_tpu_torch.kernels.up_conv import UP_CELL_INV, UP_CLASSES  # noqa: E402
 from roreg_tpu_torch.sparse import block as tblock  # noqa: E402
 
 VS = 0.05
@@ -79,9 +80,9 @@ def test_halo_maps_equal_jax():
     for ks, scale in ((3, 1), (3, 2), (5, 1), (7, 1)):
         for a, b in zip(halo_maps(ks, scale), jblock._halo_maps(ks, scale)):
             assert np.array_equal(a, b)
-    for (c, w, r), (jc, jw, jr) in zip(tblock._UP_CLASSES, jblock._UP_CLASSES):
+    for (c, w, r), (jc, jw, jr) in zip(UP_CLASSES, jblock._UP_CLASSES):
         assert np.array_equal(c, jc) and np.array_equal(w, jw) and np.array_equal(r, jr)
-    assert np.array_equal(tblock._UP_CELL_INV, jblock._UP_CELL_INV)
+    assert np.array_equal(UP_CELL_INV, jblock._UP_CELL_INV)
     assert np.array_equal(tblock._conv1_dense_map(3), jblock._conv1_dense_map(3))
 
 

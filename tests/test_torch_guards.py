@@ -34,7 +34,9 @@ def test_no_jax_imports_in_port():
     assert {
         "roreg_tpu_torch/kernels/block_gather.py", "roreg_tpu_torch/kernels/halo_conv.py",
         "roreg_tpu_torch/sparse/block.py", "roreg_tpu_torch/native/blockpyr.py",
-        "roreg_tpu_torch/pipeline/extractor.py", "chip_smoke.py",
+        "roreg_tpu_torch/pipeline/extractor.py", "roreg_tpu_torch/kernels/up_conv.py",
+        "roreg_tpu_torch/kernels/cell_dense.py", "roreg_tpu_torch/kernels/skip_concat.py",
+        "roreg_tpu_torch/models/rm.py", "chip_smoke.py",
     } <= scanned
     bad = []
     for path in _port_sources():
@@ -81,8 +83,7 @@ def test_entry_point_needs_cuda_unless_cpu(monkeypatch):
 
 @pytest.mark.parametrize(
     "change,item",
-    [({"use_rm": True}, "A1"),
-     ({"estimator": "yohoc"}, "A3"), ({"host_maps": False}, "A9"),
+    [({"estimator": "yohoc"}, "A3"), ({"host_maps": False}, "A9"),
      ({"backbone_variant": "ResUNetIN2C"}, "A8")],
 )
 def test_unported_options_raise(change, item):
@@ -92,18 +93,31 @@ def test_unported_options_raise(change, item):
 
 
 def test_default_config_is_supported():
-    """The JAX package's default engine is ported: ``PipelineConfig(use_rm=False)``
-    with no other argument builds a pipeline on the block engine."""
+    """The JAX package's default chain is ported: ``PipelineConfig()`` with
+    no argument builds a pipeline on the block engine with the RM matcher."""
+    from roreg_tpu_torch.models.rm import RotationCoherenceMatcher
     from roreg_tpu_torch.pipeline.config import check_supported
     from roreg_tpu_torch.sparse.block import BlockResUNet
 
-    cfg = PipelineConfig(use_rm=False)
-    assert cfg.engine == "block"
+    cfg = PipelineConfig()
+    assert cfg.engine == "block" and cfg.use_rm
     check_supported(cfg)
     pipe = RegistrationPipeline(cfg, init_variables(cfg, 0), device="cpu")
     assert isinstance(pipe.nets["backbone"], BlockResUNet)
+    assert isinstance(pipe.nets["rm"], RotationCoherenceMatcher)
+    assert pipe.nets["rm"].layer0.cross_s2t.row_block is None  # keynum 1000 <= 1536
     with pytest.raises(ValueError, match="unknown engine"):
-        check_supported(PipelineConfig(use_rm=False, engine="dense"))
+        check_supported(PipelineConfig(engine="dense"))
+
+
+def test_rm_row_block_follows_keynum():
+    """RM's kNN row block: the config's value, else 512 rows above keynum
+    1536 (the JAX package's pair stage), else none."""
+    from roreg_tpu_torch.pipeline.config import rm_row_block
+
+    assert rm_row_block(PipelineConfig()) is None
+    assert rm_row_block(PipelineConfig(keynum=2048)) == 512
+    assert rm_row_block(PipelineConfig(keynum=2048, rm_row_block=128)) == 128
 
 
 def test_conv_window_is_accepted_and_ignored():

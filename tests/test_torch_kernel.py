@@ -121,26 +121,3 @@ def test_conv_work_counts_what_the_table_uses(idx):
     rows_read = 3  # rows 0, 2 and 5
     table = 4 * 3 * nbr.element_size()
     assert nbytes == rows_read * cin * 2 + table + 3 * cin * cout * 2 + 4 * cout * 4
-
-
-@pytest.fixture
-def cuda_device():
-    if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device")
-    return torch.device("cuda")
-
-
-@pytest.mark.cuda
-@pytest.mark.parametrize("cin,cout,idx", [(32, 32, torch.int16), (64, 128, torch.int32), (256, 64, torch.int32)])
-def test_kernel_matches_plain_on_gpu(cuda_device, cin, cout, idx):
-    """The CUDA kernel against its plain version (run on the card)."""
-    g = torch.Generator(device=cuda_device).manual_seed(0)
-    n, m = 3000, 2000 + 37  # a ragged last tile
-    feats = torch.randn(n, cin, generator=g, device=cuda_device).bfloat16()
-    nbr = torch.randint(-1, n, (m, 27), generator=g, device=cuda_device).to(idx)
-    w = (torch.randn(27, cin, cout, generator=g, device=cuda_device) * (2 / (27 * cin)) ** 0.5).bfloat16()
-    before = gather_conv_kernel.launches
-    out = gather_conv(feats, nbr, w)
-    assert gather_conv_kernel.launches == before + 1
-    torch.cuda.synchronize()
-    assert float((out - gather_conv_plain(feats, nbr, w)).abs().max()) <= 1e-3
