@@ -14,10 +14,12 @@ Phases, each ending in one flushed progress line on stderr:
    path's table of a whole rotation chunk; error, CUDA-event times and the
    card's bound for each;
 3b. block kernels: block_gather (bit-exact), halo_conv (1e-3), up_conv
-   (1e-3), skip_concat (bit-exact) and cell_dense (1e-5 relative) against
-   their plain versions at every shape the block engine's ResUNetBN2C calls,
-   on the tables of the main path's own upload of one chunk of cloud 0;
-   error, times, bound and a library call's time for each;
+   (1e-3), skip_concat (bit-exact) and cell_dense (1e-5 relative, with the
+   level-0 cell mask the main path passes) against their plain versions at
+   every shape the block engine's ResUNetBN2C calls, on the tables of the
+   main path's own upload of one chunk of cloud 0; error, times, bound and a
+   library call's time for each, and halo_conv's launch shape (output blocks
+   per thread block, weight stages);
 3c. reference: ``register_pair`` at a small configuration on the GPU and on
    the CPU (plain versions), gather engine and block engine, whose
    descriptors must agree; and the RM matcher on both devices fed the same
@@ -312,9 +314,10 @@ def phase_block_kernels(cfg, pair: dict, seed: int, device: str = "cuda") -> tup
     totals = {name: dict.fromkeys(keys, 0.0) for name in names}
     rows = []
 
-    def measure(name, kernel, plain, library, work, uses, tol, label, peak=PEAK_BF16_FLOPS):
+    def measure(name, kernel, plain, library, work, uses, tol, label, peak=PEAK_BF16_FLOPS, launch=None):
         """tol: "exact", or ("abs" | "rel", limit). library: (one PyTorch
-        call computing the same function, what it is)."""
+        call computing the same function, what it is). launch: the kernel's
+        launch shape, reported with the row."""
         out_k = kernel()
         out_p = plain()
         torch.cuda.synchronize()
@@ -338,7 +341,7 @@ def phase_block_kernels(cfg, pair: dict, seed: int, device: str = "cuda") -> tup
                "warm_l2_ms": cuda_ms(kernel, reps=20),
                "plain_ms": cuda_ms(plain, reps=3, warmup=1, flush=l2_flush),
                "library_ms": cuda_ms(lib_fn, reps=5, warmup=1, flush=l2_flush),
-               "library": lib_what, **_bound(*work, peak)}
+               "library": lib_what, **_bound(*work, peak), **(launch or {})}
         row["tflops"] = work[0] / row["ms"] / 1e9
         row["gbps"] = work[1] / row["ms"] / 1e6
         t = totals[name]
@@ -347,10 +350,11 @@ def phase_block_kernels(cfg, pair: dict, seed: int, device: str = "cuda") -> tup
         for k in keys[:-2]:
             t[k] += uses * row[k]
         rows.append(row)
+        shape = "".join(f", {k} {v}" for k, v in (launch or {}).items())
         progress(f"  {name:12s} {label:34s} err {err:.2e} kernel {row['ms']:.3f} ms (warm L2 "
                  f"{row['warm_l2_ms']:.3f}) plain {row['plain_ms']:.3f} ms library {row['library_ms']:.3f} ms "
                  f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), {row['gbps']:.0f} GB/s, "
-                 f"{row['tflops']:.1f} TFLOP/s")
+                 f"{row['tflops']:.1f} TFLOP/s{shape}")
 
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev)
@@ -385,7 +389,8 @@ def phase_block_kernels(cfg, pair: dict, seed: int, device: str = "cuda") -> tup
                 (lambda: F.conv3d(halo, w5, stride=stride),
                  "torch.nn.functional.conv3d over the halo the plain version materialises (gather not timed)"),
                 halo_work(tbl, mask, cin, cout, stride), uses, ("abs", KERNEL_ATOL),
-                f"{kind}[{lvl}] {cin}->{cout} B={tbl.shape[0]}")
+                f"{kind}[{lvl}] {cin}->{cout} B={tbl.shape[0]}",
+                launch=halo_conv_kernel.launch_shape(cin, cout, span, stride))
         del halo
 
     for layer, lvl, cin, cout in UP_SHAPES:
@@ -413,22 +418,23 @@ def phase_block_kernels(cfg, pair: dict, seed: int, device: str = "cuda") -> tup
                 (lambda: torch.cat([a, b], -1, out=out_lib), "torch.cat into a bf16 out= tensor"),
                 concat_work(a, b), 1, "exact", f"into {layer} [{lvl}] {ca}+{cb} B={a.shape[0]}")
 
+    row_mask = occs[0].reshape(-1)  # the main path passes the level-0 cell mask
     for layer, ca, cb, n, has_bias, relu in DENSE_SHAPES:
         a = torch.relu(randn(occs[0].shape[0] * 64, ca))
         b = torch.relu(randn(occs[0].shape[0] * 64, cb)) if cb else None
         weight = randn(n, ca + cb) / (ca + cb) ** 0.5
         bias = randn(n) * 0.1 if has_bias else None
         if b is None:
-            library = (lambda: F.linear(a, weight, bias), "torch.nn.functional.linear")
+            library = (lambda: F.linear(a, weight, bias), "torch.nn.functional.linear over all rows")
         else:
             x = torch.cat([a, b], -1)
             library = (lambda: F.linear(x, weight, bias),
-                       "torch.nn.functional.linear over the concatenated input (concatenation and ReLU "
-                       "not timed)")
-        measure("cell_dense", lambda: cell_dense_kernel(a, b, weight, bias, relu),
-                lambda: cell_dense_plain(a, b, weight, bias, relu), library,
-                dense_work(a, b, weight, bias), 1, ("rel", DENSE_RTOL),
-                f"{layer} {ca}+{cb}->{n} rows={a.shape[0]}", PEAK_F32_FLOPS)
+                       "torch.nn.functional.linear over all rows of the concatenated input "
+                       "(concatenation, ReLU and mask not timed)")
+        measure("cell_dense", lambda: cell_dense_kernel(a, b, weight, bias, relu, row_mask),
+                lambda: cell_dense_plain(a, b, weight, bias, relu, row_mask), library,
+                dense_work(a, b, weight, bias, row_mask), 1, ("rel", DENSE_RTOL),
+                f"{layer} {ca}+{cb}->{n} rows={a.shape[0]} kept={int(row_mask.sum())}", PEAK_F32_FLOPS)
         if b is not None:
             del x
 

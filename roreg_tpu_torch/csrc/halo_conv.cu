@@ -12,12 +12,18 @@
 // (conv_down), whose table lists the source blocks at 2B + delta.
 //
 // feats (Nsrc * 64, Cin) bf16 (block-major rows, cell c = cx*16 + cy*4 + cz),
-// tbl (B, 27) int32, w (27, Cin, Cout) bf16, cell_mask (B, 64) uint8,
-// out (B, 64, Cout) f32. Cin a multiple of 16, Cout of 32. A table entry
-// of an occupied output block that is >= Nsrc traps (__trap(): the launch's
-// next synchronisation raises a CUDA error and the context is unusable), as
-// an out-of-range index raises in the plain version. A device-side assert
-// in its place made the kernel slower by about a tenth.
+// tbl (B, 27) int32, cell_mask (B, 64) uint8, out (B, 64, Cout) f32. The
+// weights w (27, Cin, Cout) bf16 come packed by the caller
+// (kernels/halo_conv.py pack_weights) as Cin/16 x 27 stages, one per
+// (16-channel chunk c, tap), in the order the kernel consumes them; stage
+// (c, tap) holds w[tap, 16c:16c+16, :] as wgmma's canonical K-major layout
+// without swizzle: element (k, n) at byte (n/8)*256 + (k/8)*128 + (n%8)*16
+// + (k%8)*2, so 8x8 core matrices of 128 contiguous bytes, the two K halves
+// 128 bytes apart, consecutive 8-column groups 256 bytes apart. Cin is a
+// multiple of 16, Cout 32, 64, 128 or 256. A table entry of an occupied
+// output block that is >= Nsrc traps (__trap(): the launch's next
+// synchronisation raises a CUDA error and the context is unusable), as an
+// out-of-range index raises in the plain version.
 //
 // Replaces the TPU kernel scripts/experiment_pallas_primitives.py
 // tap_loop(pad) (Pallas body `kernel`, line 93): per block, 27 taps x 4
@@ -34,26 +40,38 @@
 // into an existing source block), and it must read the source cells those
 // taps reach, the table, the mask and w, and write the whole f32 output
 // (chip_smoke.py computes each shape's bound from the tables of its run:
-// kernels/halo_conv.py halo_work). The kernel itself multiplies all 64
-// cells of an occupied block by all 27 taps, masked rows included.
+// kernels/halo_conv.py halo_work). On the smoke's tables the bound is bytes,
+// mostly the f32 output. The kernel multiplies all 64 cells of an occupied
+// block by all 27 taps, masked rows included, so its tensor-core work is a
+// dense tile per live block, and every live block needs every weight.
 //
-// Design: one thread block (4 warps) owns one output block and a 32- or
-// 64-column slice of Cout. It reads the block's 64 mask bytes first; a
-// block with no occupied cell (capacity padding) writes its zeros and
-// leaves. Otherwise it resolves its SPAN^3 halo cells to source rows once
-// (27 table entries, one shared-memory array), then for each 16-channel
-// step gathers the halo's 16 channels into shared memory with 16-byte loads
-// (zeros for absent neighbours) together with those 16 rows of all 27
-// w[tap] slices, and runs the 27 taps as 16-row x 16-deep x 8-column bf16
-// tensor-core products (mma.sync m16n8k16, f32 accumulators in registers).
-// Each warp owns 16 output cells (one x-slab of the 4x4x4 block); the A
-// operand of a tap is 16 scattered halo rows, which ldmatrix reads directly
-// from shared memory by per-lane row addresses, so no im2col copy is made.
-// The halo is gathered once per block, not once per (row, tap) as the
-// gather-conv kernel does. Dynamic shared memory (about 100 KB at SPAN 9)
-// is requested above the 48 KB default. This is the simple kernel that is
-// right; cp.async pipelining, several output blocks per thread block and
-// wgmma are later work.
+// Design: a thread block holds two consumer warpgroups and one producer
+// warp, and owns 2 or 4 consecutive output blocks: each warpgroup takes one
+// block, or two at SPAN 6 with Cout <= 64, where their accumulators and
+// halos fit. A block's 64 cells are the M = 64 rows of wgmma.mma_async
+// m64nNk16 (bf16 in, f32 accumulators in registers), N covering all of
+// Cout (m64n64k16 pieces, or one m64n32k16 at Cout 32), so the halo is
+// gathered once per block. Warp w of the warpgroup holds rows 16w..16w+15,
+// the x-slab ux = w, and reads its A fragment of a tap (16 scattered halo
+// rows) with ldmatrix by per-lane row addresses from the halo in shared
+// memory: A comes from registers, since a shared-memory descriptor cannot
+// express scattered rows. B, one stage of the weights, comes from shared
+// memory through a descriptor. The producer warp streams the 27 * Cin/16
+// weight stages through a ring of up to 16 slots (48 KB, 32 KB beside two
+// blocks a warpgroup) with cp.async.bulk and mbarriers (full: bytes landed;
+// empty: every consumer warp's wgmma has read the slot), so the 2 or 4
+// blocks of a thread block share every weight byte read from L2. A
+// warpgroup issues each tap's products as one commit group and keeps two
+// taps in flight. It double-buffers its halo by 16-channel chunk: the next
+// chunk's SPAN^3 rows come in by 16-byte cp.async (src-size 0 zero-fills
+// absent neighbours) while this chunk's taps run. The blocks' mask bytes and
+// table rows are loaded together at the start, before their liveness is
+// known. A thread block whose blocks have no occupied cell (capacity
+// padding; the host builder packs each level's live blocks at the front of
+// each rotation's capacity, so they come in runs) writes its zeros and
+// leaves without starting the producer; a block without occupied cells
+// beside a live one takes no neighbour, so its halo is zero-filled and its
+// output masked. Dynamic shared memory is at most 195 KB (SPAN 9, Cout 256).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -64,203 +82,415 @@ namespace {
 
 constexpr int kCells = 64;
 constexpr int kTaps = 27;
-constexpr int kThreads = 128;  // 4 warps x 16 output cells
-constexpr int kKC = 16;        // input channels per step
+constexpr int kKC = 16;        // input channels per chunk: one wgmma K step
 constexpr int kLDH = kKC + 8;  // halo row pitch in bf16: 48 bytes
+constexpr int kWG = 128;       // threads of a warpgroup
+
+constexpr int kBPC = 2;  // output blocks (consumer warpgroups) per thread block: a pair
+
+template <int SPAN, int COUT>
+struct Layout {
+  // output blocks per consumer warpgroup: two where their accumulators and
+  // halos fit
+  static constexpr int kBPW = SPAN == 6 && COUT <= 64 ? 2 : 1;
+  static constexpr int kBlocks = kBPC * kBPW;  // output blocks per thread block
+  static constexpr int kSpan3 = SPAN * SPAN * SPAN;
+  static constexpr int kThreads = kWG * kBPC + 32;
+  static constexpr int kStageBytes = COUT * kKC * 2;
+  // weight ring: 48 KB, or 32 KB beside the halos of two blocks a warpgroup
+  static constexpr int kRingBytes = kBPW == 2 ? 32768 : 49152;
+  static constexpr int kStages = kRingBytes / kStageBytes < 16 ? kRingBytes / kStageBytes : 16;
+  static constexpr int kHaloBytes = kSpan3 * kLDH * 2;  // one chunk of one block
+  // shared memory: weight ring | halo [kBlocks][2] | halo rows [kBlocks] | barriers
+  static constexpr int kHaloOff = kStages * kStageBytes;
+  static constexpr int kRowOff = kHaloOff + kBlocks * 2 * kHaloBytes;
+  static constexpr int kBarOff = (kRowOff + kBlocks * kSpan3 * 4 + 7) / 8 * 8;
+  static constexpr int kBytes = kBarOff + 2 * kStages * 8;
+  static_assert(kBytes <= 232448, "shared memory of one thread block");
+};
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t& r0,
-                                            uint32_t& r1, uint32_t& r2,
-                                            uint32_t& r3) {
+__device__ __forceinline__ void named_barrier(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.b32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// bytes global -> shared by the bulk-copy engine, completion counted on bar
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr));
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(dst), "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t& r0,
-                                                  uint32_t& r1, uint32_t& r2,
-                                                  uint32_t& r3) {
+// 16 bytes global -> shared; src_bytes 0 zero-fills and reads nothing
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&a)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// descriptor of a K-major, unswizzled B tile at shared address addr: the
+// two K halves 128 bytes apart (leading byte offset), 8-column groups 256
+// bytes apart (stride byte offset), all in 16-byte units
+__device__ __forceinline__ uint64_t b_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) | (static_cast<uint64_t>(128 >> 4) << 16) |
+         (static_cast<uint64_t>(256 >> 4) << 32);
+}
+
+// d (64 x 32 f32) += a (64 x 16 bf16, registers) @ B (16 x 32 bf16, desc)
+__device__ __forceinline__ void wgmma_n32(float* d, const uint32_t (&a)[4], uint64_t desc) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3)
-      : "r"(addr));
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
-// d += a (16x16 bf16, row) @ b (16x8 bf16, col), f32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&d)[4], uint32_t a0,
-                                         uint32_t a1, uint32_t a2, uint32_t a3,
-                                         uint32_t b0, uint32_t b1) {
+// d (64 x 64 f32) += a (64 x 16 bf16, registers) @ B (16 x 64 bf16, desc)
+__device__ __forceinline__ void wgmma_n64(float* d, const uint32_t (&a)[4], uint64_t desc) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
 }
 
-template <int SPAN, int BN>
-constexpr int smem_bytes() {
-  return SPAN * SPAN * SPAN * kLDH * 2 + kTaps * kKC * (BN + 8) * 2 +
-         SPAN * SPAN * SPAN * 4;
+// acc (64 x COUT) += a @ stage; accumulator element 4j + e of a thread is
+// column 8j + 2 (lane % 4) + e % 2 of row 16 warp + lane / 4 + 8 (e / 2)
+template <int COUT>
+__device__ __forceinline__ void wgmma_tile(float (&acc)[COUT / 2], const uint32_t (&a)[4],
+                                           uint32_t stage) {
+  if constexpr (COUT == 32) {
+    wgmma_n32(acc, a, b_desc(stage));
+  } else {
+#pragma unroll
+    for (int i = 0; i < COUT / 64; ++i) {
+      wgmma_n64(acc + 32 * i, a, b_desc(stage + i * 8 * 256));  // 8 column groups on
+    }
+  }
 }
 
-template <int SPAN, int STRIDE, int BN>
-__global__ void __launch_bounds__(kThreads)
+template <int SPAN, int STRIDE, int COUT>
+__global__ void __launch_bounds__(Layout<SPAN, COUT>::kThreads, 1)
 halo_conv_kernel(const __nv_bfloat16* __restrict__ feats,
                  const int32_t* __restrict__ tbl,
-                 const __nv_bfloat16* __restrict__ w,
+                 const __nv_bfloat16* __restrict__ wp,
                  const uint8_t* __restrict__ mask, float* __restrict__ out,
-                 int64_t nsrc, int cin, int cout) {
-  constexpr int kSpan3 = SPAN * SPAN * SPAN;
-  constexpr int kLDW = BN + 8;  // weight row pitch in bf16
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* halo_s = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* w_s = halo_s + kSpan3 * kLDH;
-  int* row_s = reinterpret_cast<int*>(w_s + kTaps * kKC * kLDW);
-  __shared__ int nbr_s[kTaps];
-  __shared__ int occupied_s;
+                 int64_t nb, int64_t nsrc, int cin) {
+  using L = Layout<SPAN, COUT>;
+  constexpr int kSpan3 = L::kSpan3;
+  constexpr int kBPW = L::kBPW;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  __shared__ int live_s[L::kBlocks];
+  __shared__ int nbr_s[L::kBlocks][kTaps];
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int64_t b = blockIdx.x;
-  const int n0 = blockIdx.y * BN;
-  float* out_b = out + b * kCells * cout + n0;
+  const int g = tid / kWG;  // consumer warpgroup, or kBPC for the producer warp
+  const int t = tid % kWG;
+  // warpgroup g owns blocks b0 .. b0 + kBPW - 1
+  const int64_t b0 = static_cast<int64_t>(blockIdx.x) * L::kBlocks + g * kBPW;
+  const int steps = kTaps * (cin / kKC);
+  const uint32_t full0 = smem_addr(smem + L::kBarOff);
+  const uint32_t empty0 = full0 + 8 * L::kStages;
 
-  if (tid == 0) occupied_s = 0;
+  // the blocks' mask bytes and, before their liveness is known, their table
+  // entries: the loads are in flight together
+  bool cell_live[kBPW];
+  int entry[kBPW];
+#pragma unroll
+  for (int i = 0; i < kBPW; ++i) {
+    const bool mine = g < kBPC && b0 + i < nb;
+    cell_live[i] = mine && t < kCells && mask[(b0 + i) * kCells + t] != 0;
+    entry[i] = mine && t < kTaps ? tbl[(b0 + i) * kTaps + t] : -1;
+  }
+  if (tid == 0) {
+    for (int i = 0; i < L::kBlocks; ++i) live_s[i] = 0;
+    for (int s = 0; s < L::kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 4 * kBPC);  // one arrival per consumer warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
   __syncthreads();
-  if (tid < kCells && mask[b * kCells + tid]) occupied_s = 1;
+#pragma unroll
+  for (int i = 0; i < kBPW; ++i) {
+    if (cell_live[i]) live_s[g * kBPW + i] = 1;
+  }
   __syncthreads();
-  if (!occupied_s) {  // capacity padding: zeros, no gather, no products
-    for (int e = tid; e < kCells * (BN / 4); e += kThreads) {
-      const int r = e / (BN / 4);
-      const int c = (e % (BN / 4)) * 4;
-      *reinterpret_cast<float4*>(out_b + r * cout + c) =
-          make_float4(0.f, 0.f, 0.f, 0.f);
+  bool any_live = false;
+#pragma unroll
+  for (int i = 0; i < L::kBlocks; ++i) any_live |= live_s[i] != 0;
+
+  if (g == kBPC) {  // producer: one thread streams the weight stages
+    if (!any_live || tid % 32 != 0) return;
+    for (int s = 0; s < steps; ++s) {
+      const int slot = s % L::kStages;
+      const int round = s / L::kStages;
+      if (round > 0) mbar_wait(empty0 + 8 * slot, (round - 1) & 1);
+      mbar_arrive_expect_tx(full0 + 8 * slot, L::kStageBytes);
+      bulk_copy(smem_addr(smem + slot * L::kStageBytes),
+                wp + static_cast<int64_t>(s) * (L::kStageBytes / 2), L::kStageBytes,
+                full0 + 8 * slot);
     }
     return;
   }
 
-  if (tid < kTaps) {
-    const int s = tbl[b * kTaps + tid];
-    if (s >= nsrc) __trap();
-    nbr_s[tid] = s >= 0 ? s : -1;
+  if (!any_live) {  // capacity padding: zeros, no gather, no products
+#pragma unroll
+    for (int i = 0; i < kBPW; ++i) {
+      if (b0 + i >= nb) break;
+      float4* o = reinterpret_cast<float4*>(out + (b0 + i) * kCells * COUT);
+      for (int e = t; e < kCells * (COUT / 4); e += kWG) o[e] = make_float4(0.f, 0.f, 0.f, 0.f);
+    }
+    return;
   }
-  __syncthreads();
+
+  // Both warpgroups of a live thread block run every weight stage. A block
+  // with no occupied cell (or past the end) beside a live one takes no
+  // neighbour: its halo is zero-filled and its output masked.
+  const int bar_id = 1 + g;  // this warpgroup's named barrier
+  if (t < kTaps) {
+#pragma unroll
+    for (int i = 0; i < kBPW; ++i) {
+      const bool live = live_s[g * kBPW + i] != 0;
+      if (live && entry[i] >= nsrc) __trap();
+      nbr_s[g * kBPW + i][t] = live && entry[i] >= 0 ? entry[i] : -1;
+    }
+  }
+  named_barrier(bar_id, kWG);
   // halo position -> source row (block * 64 + cell), -1 where absent
-  for (int p = tid; p < kSpan3; p += kThreads) {
+  int* row_s = reinterpret_cast<int*>(smem + L::kRowOff) + g * kBPW * kSpan3;
+  for (int e = t; e < kBPW * kSpan3; e += kWG) {
+    const int i = e / kSpan3;
+    const int p = e - i * kSpan3;
     const int ax = p / (SPAN * SPAN) - 1;
     const int ay = (p / SPAN) % SPAN - 1;
     const int az = p % SPAN - 1;
     // floor division by 4 of a unit in [-1, 4 * STRIDE - 1]
     const int dx = (ax + 4) / 4 - 1, dy = (ay + 4) / 4 - 1, dz = (az + 4) / 4 - 1;
-    const int blk = nbr_s[(dx + 1) * 9 + (dy + 1) * 3 + (dz + 1)];
+    const int blk = nbr_s[g * kBPW + i][(dx + 1) * 9 + (dy + 1) * 3 + (dz + 1)];
     const int cell = (ax - 4 * dx) * 16 + (ay - 4 * dy) * 4 + (az - 4 * dz);
-    row_s[p] = blk < 0 ? -1 : blk * kCells + cell;
+    row_s[e] = blk < 0 ? -1 : blk * kCells + cell;
   }
+  named_barrier(bar_id, kWG);
+
+  // halo buffers of this warpgroup: [chunk parity][block]
+  __nv_bfloat16* halo_s =
+      reinterpret_cast<__nv_bfloat16*>(smem + L::kHaloOff) + g * kBPW * 2 * kSpan3 * kLDH;
+  auto load_halo = [&](int chunk) {
+    __nv_bfloat16* dst = halo_s + (chunk & 1) * kBPW * kSpan3 * kLDH;
+    for (int e = t; e < kBPW * kSpan3 * 2; e += kWG) {
+      const int p = e >> 1;  // block * kSpan3 + halo position
+      const int part = e & 1;
+      const int src = row_s[p];
+      const __nv_bfloat16* from =
+          src >= 0 ? feats + static_cast<int64_t>(src) * cin + chunk * kKC + part * 8 : feats;
+      cp_async_16(smem_addr(dst + p * kLDH + part * 8), from, src >= 0 ? 16 : 0);
+    }
+    cp_async_commit();
+  };
 
   // this lane's A row: output cell warp*16 + r, r = uy*4 + uz, ux = warp;
   // its halo position for tap (ox, oy, oz) is a_base + ox*SPAN^2 + oy*SPAN + oz
+  const int warp = t / 32;
+  const int lane = t % 32;
   const int r = lane & 15;
-  const int half = lane >> 4;  // which 8 of the 16 channels (A) or columns (B)
+  const int half = lane >> 4;  // which 8 of the 16 channels
   const int a_base = STRIDE * (warp * SPAN * SPAN + (r >> 2) * SPAN + (r & 3));
 
-  float acc[BN / 8][4];
+  float acc[kBPW][COUT / 2];
 #pragma unroll
-  for (int t = 0; t < BN / 8; ++t) {
-    acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.f;
+  for (int i = 0; i < kBPW; ++i) {
+#pragma unroll
+    for (int j = 0; j < COUT / 2; ++j) acc[i][j] = 0.f;
   }
 
-  for (int c0 = 0; c0 < cin; c0 += kKC) {
-    __syncthreads();  // row_s ready; the previous step's reads are done
-    for (int e = tid; e < kSpan3 * 2; e += kThreads) {
-      const int p = e >> 1;
-      const int part = e & 1;
-      const int src = row_s[p];
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (src >= 0) {
-        v = __ldg(reinterpret_cast<const uint4*>(
-            feats + static_cast<int64_t>(src) * cin + c0 + part * 8));
-      }
-      *reinterpret_cast<uint4*>(halo_s + p * kLDH + part * 8) = v;
+  const int chunks = cin / kKC;
+  load_halo(0);
+  for (int c = 0; c < chunks; ++c) {
+    if (c + 1 < chunks) {  // the next chunk's halo loads while this one's taps run
+      load_halo(c + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-    for (int e = tid; e < kTaps * kKC * (BN / 8); e += kThreads) {
-      const int col8 = e % (BN / 8);
-      const int row = e / (BN / 8);  // tap * kKC + k
-      const int tap = row / kKC;
-      const int k = row - tap * kKC;
-      *reinterpret_cast<uint4*>(w_s + row * kLDW + col8 * 8) =
-          __ldg(reinterpret_cast<const uint4*>(
-              w + (static_cast<int64_t>(tap) * cin + c0 + k) * cout + n0 +
-              col8 * 8));
-    }
-    __syncthreads();
-#pragma unroll 3
+    named_barrier(bar_id, kWG);  // chunk c's halo is in shared memory
+    const uint32_t a_addr =
+        smem_addr(halo_s + (c & 1) * kBPW * kSpan3 * kLDH + a_base * kLDH + half * 8);
+    uint32_t a[2][kBPW][4];
+#pragma unroll
     for (int tap = 0; tap < kTaps; ++tap) {
-      const int ox = tap / 9, oy = (tap / 3) % 3, oz = tap % 3;
-      const int hrow = a_base + ox * SPAN * SPAN + oy * SPAN + oz;
-      uint32_t a0, a1, a2, a3;
-      ldmatrix_x4(smem_addr(halo_s + hrow * kLDH + half * 8), a0, a1, a2, a3);
+      const int s = c * kTaps + tap;
+      const int slot = s % L::kStages;
+      const int off = ((tap / 9) * SPAN * SPAN + ((tap / 3) % 3) * SPAN + tap % 3) * kLDH * 2;
 #pragma unroll
-      for (int j = 0; j < BN / 16; ++j) {
-        uint32_t b0, b1, b2, b3;
-        ldmatrix_x4_trans(
-            smem_addr(w_s + (tap * kKC + r) * kLDW + j * 16 + half * 8), b0,
-            b1, b2, b3);
-        mma_bf16(acc[2 * j], a0, a1, a2, a3, b0, b1);
-        mma_bf16(acc[2 * j + 1], a0, a1, a2, a3, b2, b3);
+      for (int i = 0; i < kBPW; ++i) {
+        ldmatrix_x4(a_addr + i * kSpan3 * kLDH * 2 + off, a[tap & 1][i]);
+      }
+      mbar_wait(full0 + 8 * slot, (s / L::kStages) & 1);
+      __syncwarp();  // converged for the .aligned wgmma instructions
+      wgmma_fence();
+      const uint32_t stage = smem_addr(smem + slot * L::kStageBytes);
+#pragma unroll
+      for (int i = 0; i < kBPW; ++i) wgmma_tile<COUT>(acc[i], a[tap & 1][i], stage);
+      wgmma_commit();
+      if (tap > 0) {
+        wgmma_wait<1>();  // the previous tap's products have read its stage and A
+        if (lane == 0) mbar_arrive(empty0 + 8 * ((s - 1) % L::kStages));
+        __syncwarp();
       }
     }
+    wgmma_wait<0>();
+    if (lane == 0) mbar_arrive(empty0 + 8 * ((c * kTaps + kTaps - 1) % L::kStages));
+    named_barrier(bar_id, kWG);  // every read of this halo buffer is done
   }
 
-  // accumulator layout (m16n8): rows lane/4 and lane/4 + 8, columns
-  // 2*(lane%4) and +1 of each 8-column tile
   const int cell_a = warp * 16 + (lane >> 2);
   const int cell_b = cell_a + 8;
-  const bool keep_a = mask[b * kCells + cell_a] != 0;
-  const bool keep_b = mask[b * kCells + cell_b] != 0;
 #pragma unroll
-  for (int t = 0; t < BN / 8; ++t) {
-    const int col = t * 8 + (lane & 3) * 2;
-    *reinterpret_cast<float2*>(out_b + cell_a * cout + col) =
-        keep_a ? make_float2(acc[t][0], acc[t][1]) : make_float2(0.f, 0.f);
-    *reinterpret_cast<float2*>(out_b + cell_b * cout + col) =
-        keep_b ? make_float2(acc[t][2], acc[t][3]) : make_float2(0.f, 0.f);
+  for (int i = 0; i < kBPW; ++i) {
+    const int64_t b = b0 + i;
+    if (b >= nb) break;
+    float* out_b = out + b * kCells * COUT;
+    const bool keep_a = mask[b * kCells + cell_a] != 0;
+    const bool keep_b = mask[b * kCells + cell_b] != 0;
+#pragma unroll
+    for (int j = 0; j < COUT / 8; ++j) {
+      const int col = j * 8 + (lane & 3) * 2;
+      *reinterpret_cast<float2*>(out_b + cell_a * COUT + col) =
+          keep_a ? make_float2(acc[i][4 * j], acc[i][4 * j + 1]) : make_float2(0.f, 0.f);
+      *reinterpret_cast<float2*>(out_b + cell_b * COUT + col) =
+          keep_b ? make_float2(acc[i][4 * j + 2], acc[i][4 * j + 3]) : make_float2(0.f, 0.f);
+    }
   }
 }
 
-template <int SPAN, int STRIDE, int BN>
-int launch(const void* feats, const void* tbl, const void* w, const void* mask,
-           void* out, int64_t nb, int64_t nsrc, int cin, int cout,
-           cudaStream_t stream) {
-  auto kernel = halo_conv_kernel<SPAN, STRIDE, BN>;
-  constexpr int bytes = smem_bytes<SPAN, BN>();
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+template <int SPAN, int STRIDE, int COUT>
+int launch(const void* feats, const void* tbl, const void* wp, const void* mask, void* out,
+           int64_t nb, int64_t nsrc, int cin, cudaStream_t stream) {
+  using L = Layout<SPAN, COUT>;
+  auto kernel = halo_conv_kernel<SPAN, STRIDE, COUT>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(static_cast<unsigned>(nb), cout / BN), kThreads, bytes,
-           stream>>>(static_cast<const __nv_bfloat16*>(feats),
-                     static_cast<const int32_t*>(tbl),
-                     static_cast<const __nv_bfloat16*>(w),
-                     static_cast<const uint8_t*>(mask),
-                     static_cast<float*>(out), nsrc, cin, cout);
+  const unsigned grid = static_cast<unsigned>((nb + L::kBlocks - 1) / L::kBlocks);
+  kernel<<<grid, L::kThreads, L::kBytes, stream>>>(
+      static_cast<const __nv_bfloat16*>(feats), static_cast<const int32_t*>(tbl),
+      static_cast<const __nv_bfloat16*>(wp), static_cast<const uint8_t*>(mask),
+      static_cast<float*>(out), nb, nsrc, cin);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <int SPAN, int STRIDE>
-int launch_bn(const void* feats, const void* tbl, const void* w,
-              const void* mask, void* out, int64_t nb, int64_t nsrc, int cin,
-              int cout, cudaStream_t stream) {
-  if (cout % 64 == 0) {
-    return launch<SPAN, STRIDE, 64>(feats, tbl, w, mask, out, nb, nsrc, cin,
-                                    cout, stream);
+int launch_cout(const void* feats, const void* tbl, const void* wp, const void* mask, void* out,
+                int64_t nb, int64_t nsrc, int cin, int cout, cudaStream_t stream) {
+  switch (cout) {
+    case 32: return launch<SPAN, STRIDE, 32>(feats, tbl, wp, mask, out, nb, nsrc, cin, stream);
+    case 64: return launch<SPAN, STRIDE, 64>(feats, tbl, wp, mask, out, nb, nsrc, cin, stream);
+    case 128: return launch<SPAN, STRIDE, 128>(feats, tbl, wp, mask, out, nb, nsrc, cin, stream);
+    default: return launch<SPAN, STRIDE, 256>(feats, tbl, wp, mask, out, nb, nsrc, cin, stream);
   }
-  return launch<SPAN, STRIDE, 32>(feats, tbl, w, mask, out, nb, nsrc, cin,
-                                  cout, stream);
+}
+
+template <int SPAN, int COUT>
+void shape_of(int* bpc, int* stages) {
+  *bpc = Layout<SPAN, COUT>::kBlocks;
+  *stages = Layout<SPAN, COUT>::kStages;
+}
+
+template <int SPAN>
+void shape_of_cout(int cout, int* bpc, int* stages) {
+  switch (cout) {
+    case 32: return shape_of<SPAN, 32>(bpc, stages);
+    case 64: return shape_of<SPAN, 64>(bpc, stages);
+    case 128: return shape_of<SPAN, 128>(bpc, stages);
+    default: return shape_of<SPAN, 256>(bpc, stages);
+  }
+}
+
+bool takes(int span, int stride, int cin, int cout) {
+  const bool geometry = (span == 6 && stride == 1) || (span == 9 && stride == 2);
+  return geometry && cin > 0 && cin % kKC == 0 &&
+         (cout == 32 || cout == 64 || cout == 128 || cout == 256);
 }
 
 }  // namespace
@@ -268,23 +498,34 @@ int launch_bn(const void* feats, const void* tbl, const void* w,
 extern "C" {
 
 // Launches on `stream` without synchronising. span/stride is 6/1 (same
-// level) or 9/2 (down). Returns the CUDA error of the launch (0 on
-// success) or cudaErrorInvalidValue for arguments the kernel does not take.
-// The caller owns every buffer; feats, w and out are 16-byte aligned.
-int halo_conv_bf16(const void* feats, const void* tbl, const void* w,
-                   const void* mask, void* out, int64_t nb, int64_t nsrc,
-                   int cin, int cout, int span, int stride, void* stream) {
-  const bool geometry = (span == 6 && stride == 1) || (span == 9 && stride == 2);
-  if (!geometry || cin % kKC != 0 || cin <= 0 || cout % 32 != 0 || cout <= 0 ||
-      nb < 0 || nsrc < 0 || nb > 0x7fffffff || nsrc * kCells > 0x7fffffff) {
+// level) or 9/2 (down); wp is w packed as the header says. Returns the CUDA
+// error of the launch (0 on success) or cudaErrorInvalidValue for arguments
+// the kernel does not take. The caller owns every buffer; feats, wp and out
+// are 16-byte aligned.
+int halo_conv_bf16(const void* feats, const void* tbl, const void* wp, const void* mask,
+                   void* out, int64_t nb, int64_t nsrc, int cin, int cout, int span,
+                   int stride, void* stream) {
+  if (!takes(span, stride, cin, cout) || nb < 0 || nsrc < 0 || nb > 0x7fffffff ||
+      nsrc * kCells > 0x7fffffff) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (nb == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (stride == 1) {
-    return launch_bn<6, 1>(feats, tbl, w, mask, out, nb, nsrc, cin, cout, s);
+  if (stride == 1) return launch_cout<6, 1>(feats, tbl, wp, mask, out, nb, nsrc, cin, cout, s);
+  return launch_cout<9, 2>(feats, tbl, wp, mask, out, nb, nsrc, cin, cout, s);
+}
+
+// The launch shape for a call: output blocks per thread block and weight
+// stages in the ring. Returns cudaErrorInvalidValue for arguments the
+// kernel does not take.
+int halo_conv_launch_shape(int span, int stride, int cin, int cout, int* bpc, int* stages) {
+  if (!takes(span, stride, cin, cout)) return static_cast<int>(cudaErrorInvalidValue);
+  if (span == 6) {
+    shape_of_cout<6>(cout, bpc, stages);
+  } else {
+    shape_of_cout<9>(cout, bpc, stages);
   }
-  return launch_bn<9, 2>(feats, tbl, w, mask, out, nb, nsrc, cin, cout, s);
+  return 0;
 }
 
 }  // extern "C"

@@ -34,6 +34,7 @@ __all__ = [
     "halo_conv_plain",
     "halo_conv_kernel",
     "halo_work",
+    "pack_weights",
 ]
 
 BLOCK = 4  # cells per axis; 64 cells per block
@@ -120,6 +121,15 @@ def halo_conv_plain(
     return out
 
 
+def pack_weights(w: torch.Tensor) -> torch.Tensor:
+    """(27, Cin, Cout) -> the kernel's weight stages, (Cin/16, 27, Cout/8,
+    2, 8, 8): stage (c, tap) holds ``w[tap, 16c:16c+16, :]`` with element
+    (k, n) at [n // 8, k // 8, n % 8, k % 8], wgmma's K-major layout of 8x8
+    core matrices without swizzle (``csrc/halo_conv.cu``)."""
+    _, cin, cout = w.shape
+    return w.view(27, cin // 16, 2, 8, cout // 8, 8).permute(1, 0, 4, 2, 5, 3).contiguous()
+
+
 class HaloConvKernel(CudaKernel):
     """The CUDA kernel's wrapper: checks its arguments, launches on the
     current stream, counts launches in ``launches``."""
@@ -130,6 +140,16 @@ class HaloConvKernel(CudaKernel):
         vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.halo_conv_bf16.restype = ci
         lib.halo_conv_bf16.argtypes = [vp, vp, vp, vp, vp, i64, i64, ci, ci, ci, ci, vp]
+        lib.halo_conv_launch_shape.restype = ci
+        lib.halo_conv_launch_shape.argtypes = [ci, ci, ci, ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
+
+    def launch_shape(self, cin: int, cout: int, span: int, stride: int) -> dict:
+        """The kernel's launch shape for these widths: output blocks per
+        thread block and the weight stages of its ring."""
+        bpc, stages = ctypes.c_int(), ctypes.c_int()
+        rc = self._load().halo_conv_launch_shape(span, stride, cin, cout, bpc, stages)
+        self.check_rc("halo_conv", rc)
+        return {"blocks_per_cta": bpc.value, "stages": stages.value}
 
     def __call__(
         self, feats: torch.Tensor, tbl: torch.Tensor, w: torch.Tensor, cell_mask: torch.Tensor,
@@ -160,22 +180,23 @@ class HaloConvKernel(CudaKernel):
                 f"shape mismatch: feats {tuple(feats.shape)}, tbl {tuple(tbl.shape)}, "
                 f"w {tuple(w.shape)}, cell_mask {tuple(cell_mask.shape)}"
             )
-        if cin % 16 or cout % 32:
+        if cin % 16 or cout not in (32, 64, 128, 256):
             raise ValueError(
-                f"halo_conv kernel takes Cin in multiples of 16 and Cout in multiples of 32, "
+                f"halo_conv kernel takes Cin in multiples of 16 and Cout of 32, 64, 128 or 256, "
                 f"got Cin={cin}, Cout={cout}"
             )
         for name, t in (("feats", feats), ("tbl", tbl), ("w", w), ("cell_mask", cell_mask)):
             if not t.is_contiguous():
                 raise ValueError(f"halo_conv kernel: {name} must be contiguous")
-        if feats.data_ptr() % 16 or w.data_ptr() % 16:
-            raise ValueError("halo_conv kernel: feats and w must be 16-byte aligned")
+        if feats.data_ptr() % 16:
+            raise ValueError("halo_conv kernel: feats must be 16-byte aligned")
         lib = self._load()
         out = torch.empty((b, CELLS, cout), dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
+            wp = pack_weights(w)
             rc = lib.halo_conv_bf16(
-                feats.data_ptr(), tbl.data_ptr(), w.data_ptr(),
+                feats.data_ptr(), tbl.data_ptr(), wp.data_ptr(),
                 cell_mask.data_ptr(), out.data_ptr(), b, nsrc, cin, cout, span, stride, stream,
             )
         self.check_rc("halo_conv", rc)

@@ -25,7 +25,9 @@ concatenations write the bf16 input of the up conv that follows
 (``kernels/skip_concat.py``) when that conv computes in bf16, and the
 per-cell dense layers ``conv1_tr`` and ``final`` run in f32 through
 ``kernels/cell_dense.py``, ``conv1_tr`` reading its two inputs as two
-K-slices in place of their concatenation.
+K-slices in place of their concatenation; both take the level-0 cell mask
+and compute only the rows of occupied cells, zeros elsewhere, which the
+final mask of the output makes the same function.
 
 :class:`BlockResUNet` has exactly the parameter names of
 :class:`roreg_tpu_torch.sparse.resunet.ResUNet`, so one set of converted
@@ -374,8 +376,9 @@ class BlockResUNet(nn.Module):
         x = self.norm2_tr(self.conv2_tr(x, pyr.up_tbl[0], occs[0]), occs[0])
         x = torch.relu(self.block2_tr(x, same[0], occs[0]))
 
-        x = cell_dense(x, out_s1, self.conv1_tr.weight, relu=True)
-        x = cell_dense(x, None, self.final.weight, self.final.bias)
+        # the output is masked below, so the dense layers skip unoccupied cells
+        x = cell_dense(x, out_s1, self.conv1_tr.weight, relu=True, row_mask=occs[0])
+        x = cell_dense(x, None, self.final.weight, self.final.bias, row_mask=occs[0])
         if self.normalize_feature:
             x = x * torch.rsqrt((x * x).sum(-1, keepdim=True) + 1e-12)
         return _masked(x, occs[0]).reshape(-1, x.shape[-1])

@@ -26,6 +26,7 @@ from roreg_tpu_torch.kernels.halo_conv import (  # noqa: E402
     halo_conv_plain,
     halo_maps,
     halo_work,
+    pack_weights,
 )
 
 # bf16 products are exact in f32; kernel and plain version differ only by
@@ -124,6 +125,23 @@ def test_work_counts_what_the_tables_use():
     assert nbytes == (18 + 8) * cin * 2 + 81 * 4 + 192 + 27 * cin * cout * 2 + 3 * 64 * cout * 4
 
 
+@pytest.mark.parametrize("cin,cout", [(16, 32), (32, 64), (64, 256)])
+def test_pack_weights_is_wgmma_k_major_layout(cin, cout):
+    """Stage (c, tap) of the packed weights holds w[tap, 16c + k, n] at byte
+    (n/8)*256 + (k/8)*128 + (n%8)*16 + (k%8)*2 of its Cout * 32 bytes, the
+    layout the kernel's wgmma descriptor names (csrc/halo_conv.cu)."""
+    w = torch.arange(27 * cin * cout, dtype=torch.int32).view(27, cin, cout)
+    flat = pack_weights(w).reshape(-1)
+    assert flat.numel() == w.numel()
+    c, tap, k, n = np.meshgrid(np.arange(cin // 16), np.arange(27), np.arange(16), np.arange(cout),
+                               indexing="ij")
+    elem = (n // 8) * 128 + (k // 8) * 64 + (n % 8) * 8 + k % 8  # bytes / 2
+    where = (c * 27 + tap) * cout * 16 + elem
+    assert torch.equal(flat[torch.from_numpy(where.reshape(-1))],
+                       w[torch.from_numpy(tap.reshape(-1)), torch.from_numpy((16 * c + k).reshape(-1)),
+                         torch.from_numpy(n.reshape(-1))])
+
+
 @pytest.mark.parametrize("kernel", ["block_gather", "halo_conv"])
 def test_plain_versions_refuse_out_of_range_entries(kernel):
     """An entry >= Nsrc is an error, not an absent block (the kernels trap
@@ -183,6 +201,34 @@ def test_halo_conv_kernel_matches_plain_on_gpu(cuda_device, span, stride, cin, c
     assert out.dtype == torch.float32 and out.shape == (b, 64, cout)
     assert float((out - ref).abs().max()) <= HALO_ATOL
     assert bool((out[~mask] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("span,stride", [(6, 1), (9, 2)])
+@pytest.mark.parametrize("cin,cout", [(16, 32), (48, 64), (32, 128), (64, 256)])
+def test_halo_conv_kernel_dead_runs_on_gpu(cuda_device, span, stride, cin, cout):
+    """Runs of live blocks and of dead ones (no occupied cell) in the order
+    the host builder packs them, a dead block beside a live one in a thread
+    block, and a block count that is no multiple of the blocks per thread
+    block."""
+    rng = np.random.default_rng(cin * cout + span)
+    nsrc, b = 300, 3 * 67
+    tbl, mask = _blocks(rng, b, nsrc, absent=0.5)
+    mask[:, 0] = True
+    mask[40:70] = False  # a run of padding
+    mask[71] = False  # one dead block between live ones
+    mask[130:] = False  # the tail of the capacity
+    tbl = torch.from_numpy(tbl).to(cuda_device)
+    mask = torch.from_numpy(mask).to(cuda_device)
+    feats = torch.randn(nsrc, 64, cin, device=cuda_device).bfloat16()
+    w = (torch.randn(27, cin, cout, device=cuda_device) * (2 / (27 * cin)) ** 0.5).bfloat16()
+    out = halo_conv(feats, tbl, w, mask, span, stride)
+    torch.cuda.synchronize()
+    ref = halo_conv_plain(feats, tbl, w, mask, span, stride)
+    assert float((out - ref).abs().max()) <= HALO_ATOL
+    assert bool((out[~mask] == 0).all())
+    shape = halo_conv_kernel.launch_shape(cin, cout, span, stride)
+    assert b % shape["blocks_per_cta"] and shape["stages"] >= 2
 
 
 OUT_OF_RANGE = """

@@ -156,6 +156,50 @@ def test_decoder_work_counts():
     assert nbytes == 1 * cin * 2 + 2 * 64 + 27 * cin * cout * 2 + 2 * 64 * cout * 4
 
 
+def test_dense_work_with_a_mask_counts_kept_rows():
+    """With a row mask, reads and operations count the kept rows only; the
+    f32 output of every row is written, and the mask is read once."""
+    weight, bias = torch.zeros(64, 96), torch.zeros(64)
+    mask = torch.zeros(5, 64, dtype=torch.bool)
+    mask[0, :10] = True
+    mask[3, 5] = True
+    a, b = torch.zeros(5, 64, 64), torch.zeros(5, 64, 32)
+    ops, nbytes = dense_work(a, b, weight, bias, mask)
+    assert ops == 2 * 11 * 96 * 64
+    assert nbytes == 4 * (11 * 96 + 64 * 96 + 64 + 5 * 64 * 64) + 5 * 64
+    assert dense_work(a, b, weight, bias, torch.ones(5, 64, dtype=torch.bool)) == (
+        dense_work(a, b, weight, bias)[0], dense_work(a, b, weight, bias)[1] + 5 * 64)
+
+
+@pytest.mark.parametrize("bad,error,match", [
+    (lambda m: m.to(torch.uint8), TypeError, "bool row_mask"),
+    (lambda m: m[:, :32], ValueError, "rows' shape"),
+    (lambda m: m.reshape(-1), ValueError, "rows' shape"),
+    (lambda m: m.t().contiguous().t(), ValueError, "contiguous"),
+    (lambda m: torch.empty(m.shape, dtype=torch.bool, device="meta"), ValueError, "inputs' device"),
+], ids=["dtype", "shape", "flat", "strided", "device"])
+def test_cell_dense_kernel_refuses_a_bad_mask(bad, error, match):
+    a = torch.zeros(4, 64, 64)
+    weight = torch.zeros(32, 64)
+    mask = torch.ones(4, 64, dtype=torch.bool)
+    with pytest.raises(error, match=match):
+        cell_dense_kernel(a, None, weight, row_mask=bad(mask))
+
+
+def test_masked_cell_dense_zeroes_unkept_rows_on_cpu():
+    """The masked layer is the unmasked one with unkept rows set to zero,
+    bias and ReLU included."""
+    rng = np.random.default_rng(3)
+    a = torch.from_numpy(rng.normal(size=(3, 64, 64)).astype(np.float32))
+    weight = torch.from_numpy(rng.normal(size=(32, 64)).astype(np.float32))
+    bias = torch.from_numpy(rng.normal(size=(32,)).astype(np.float32))
+    mask = torch.from_numpy(rng.random((3, 64)) < 0.5)
+    full = cell_dense(a, None, weight, bias, True)
+    out = cell_dense(a, None, weight, bias, True, mask)
+    assert torch.equal(out[mask], full[mask])
+    assert not out[~mask].any()
+
+
 def test_gather_conv_plain_refuses_out_of_range_entries():
     """An entry >= N is an error, not an absent row (the kernel traps)."""
     nbr = torch.full((2, 27), -1, dtype=torch.int32)
@@ -221,6 +265,64 @@ def test_cell_dense_kernel_matches_plain_on_gpu(cuda_device, blocks, ca, cb, n, 
     ref = cell_dense_plain(a, b, weight, bias_t, relu)
     assert out.shape == (rows, n) and out.dtype == torch.float32
     assert float(((out - ref).abs() / (ref.abs() + 1)).max()) <= DENSE_RTOL
+
+
+def _dense_mask(blocks, pattern, device):
+    """A (blocks, 64) row mask: "dead" keeps nothing, "mixed" keeps some rows
+    of every third block and nothing in runs of padding blocks (a run of
+    live blocks then a run of dead ones, as the host builder packs them)."""
+    if pattern == "dead":
+        return torch.zeros(blocks, 64, dtype=torch.bool, device=device)
+    rng = np.random.default_rng(blocks)
+    mask = rng.random((blocks, 64)) < 0.15
+    mask[1::3] = False
+    mask[blocks // 2: blocks // 2 + 9] = False
+    mask[-3:] = False
+    return torch.from_numpy(mask).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["dead", "mixed"])
+@pytest.mark.parametrize("blocks,ca,cb,n,bias,relu", [
+    (301, 64, 32, 64, False, True),  # conv1_tr
+    (301, 64, 0, 32, True, False),  # final
+])
+def test_masked_cell_dense_kernel_matches_plain_on_gpu(cuda_device, pattern, blocks, ca, cb, n, bias,
+                                                       relu):
+    """All-dead tiles, and tiles mixing kept and masked rows with runs of
+    dead tiles between; rows are whole blocks here, the ragged last tile is
+    tested without a mask above and with one below."""
+    g = torch.Generator(device=cuda_device).manual_seed(ca + cb + n + len(pattern))
+    a = torch.relu(torch.randn(blocks, 64, ca, generator=g, device=cuda_device))
+    b = torch.relu(torch.randn(blocks, 64, cb, generator=g, device=cuda_device)) if cb else None
+    weight = torch.randn(n, ca + cb, generator=g, device=cuda_device) / (ca + cb) ** 0.5
+    bias_t = torch.randn(n, generator=g, device=cuda_device) if bias else None
+    mask = _dense_mask(blocks, pattern, cuda_device)
+    before = cell_dense_kernel.launches
+    out = cell_dense(a, b, weight, bias_t, relu, mask)
+    assert cell_dense_kernel.launches == before + 1
+    torch.cuda.synchronize()
+    ref = cell_dense_plain(a, b, weight, bias_t, relu, mask)
+    assert out.shape == (blocks, 64, n) and out.dtype == torch.float32
+    assert float(((out - ref).abs() / (ref.abs() + 1)).max()) <= DENSE_RTOL
+    assert not bool(out[~mask].any())
+
+
+@pytest.mark.cuda
+def test_masked_cell_dense_kernel_ragged_last_tile_on_gpu(cuda_device):
+    """Rows that end mid-tile (not whole blocks), with a row mask."""
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    rows = 300 * 64 + 37
+    a = torch.randn(rows, 64, generator=g, device=cuda_device)
+    b = torch.randn(rows, 32, generator=g, device=cuda_device)
+    weight = torch.randn(64, 96, generator=g, device=cuda_device) / 96 ** 0.5
+    mask = torch.rand(rows, generator=g, device=cuda_device) < 0.3
+    mask[-20:] = True
+    out = cell_dense(a, b, weight, None, True, mask)
+    torch.cuda.synchronize()
+    ref = cell_dense_plain(a, b, weight, None, True, mask)
+    assert float(((out - ref).abs() / (ref.abs() + 1)).max()) <= DENSE_RTOL
+    assert not bool(out[~mask].any())
 
 
 @pytest.mark.cuda

@@ -71,6 +71,34 @@ def test_cell_dense_plain_matches_flax_dense(cb, bias, relu):
     assert out.dtype == np.float32 and np.abs(out - ref).max() <= TOL
 
 
+@pytest.mark.parametrize("cb,n,bias,relu", [(32, 64, False, True), (0, 32, True, False)],
+                         ids=["conv1_tr", "final"])
+def test_masked_cell_dense_plain_matches_flax_dense_then_mask(cb, n, bias, relu):
+    """With the level-0 cell mask, the plain version equals flax nn.Dense
+    followed by jnp.where(mask): the JAX package's layer and its final mask
+    (roreg_tpu/sparse/block.py:679-684), at the decoder's widths."""
+    rng = np.random.default_rng(10 + cb)
+    a = rng.normal(size=(7, 64, 64)).astype(np.float32)
+    b = rng.normal(size=(7, 64, cb)).astype(np.float32)
+    mask = rng.random((7, 64)) < 0.3
+    mask[2] = False  # a padding block
+    x = np.concatenate([a, b], -1)
+    dense = nn.Dense(n, use_bias=bias)
+    v = jax.tree_util.tree_map(np.asarray, dense.init(jax.random.PRNGKey(cb), jnp.asarray(x)))
+    if bias:
+        v["params"]["bias"] = rng.normal(size=n).astype(np.float32)
+    ref = dense.apply(v, jnp.asarray(x))
+    ref = nn.relu(ref) if relu else ref
+    ref = np.asarray(jnp.where(jnp.asarray(mask)[..., None], ref, 0.0))
+    weight = torch.from_numpy(v["params"]["kernel"].T.copy())
+    out = cell_dense_plain(torch.from_numpy(a), torch.from_numpy(b) if cb else None, weight,
+                           torch.from_numpy(v["params"]["bias"]) if bias else None, relu,
+                           torch.from_numpy(mask)).numpy()
+    assert out.dtype == np.float32 and out.shape == (7, 64, n)
+    assert np.abs(out - ref).max() <= TOL
+    assert not out[~mask].any()
+
+
 def test_skip_concat_plain_matches_jax_concat_cast():
     rng = np.random.default_rng(7)
     a = (rng.normal(size=(9, 64, 32)) * 10).astype(np.float32)
