@@ -11,15 +11,17 @@ Phases, each ending in one flushed progress line on stderr:
 3. kernel: the gather-conv kernel against its plain PyTorch version on the
    tables of one full-capacity host pyramid of the synthetic cloud, at the
    11 ResUNetBN2C conv shapes, both as one rotation's table and as the main
-   path's table of a whole rotation chunk; error, CUDA-event times and the
-   card's bound for each;
+   path's table of a whole rotation chunk; error, a second launch that must
+   be bit-equal to the first, CUDA-event times, the card's bound and the
+   kernel's launch shape (rows per thread block, channels per step, ring
+   slots, cluster split) for each;
 3b. block kernels: block_gather (bit-exact), halo_conv (1e-3), up_conv
    (1e-3), skip_concat (bit-exact) and cell_dense (1e-5 relative, with the
    level-0 cell mask the main path passes) against their plain versions at
    every shape the block engine's ResUNetBN2C calls, on the tables of the
    main path's own upload of one chunk of cloud 0; error, times, bound and a
-   library call's time for each, and halo_conv's launch shape (output blocks
-   per thread block, weight stages);
+   library call's time for each, and halo_conv's and up_conv's launch
+   shapes (output blocks per thread block, weight stages);
 3c. reference: ``register_pair`` at a small configuration on the GPU and on
    the CPU (plain versions), gather engine and block engine, whose
    descriptors must agree; and the RM matcher on both devices fed the same
@@ -237,12 +239,16 @@ def phase_kernel(cfg, pair: dict, seed: int, device: str = "cuda") -> tuple[dict
                "cout": cout, "uses": uses, "voxels": nvox}
         for tag, feats, table in (("one", feats_1, single), ("chunk", feats_b, table_b)):
             out_k = gather_conv_kernel(feats, table, w)
+            again = gather_conv_kernel(feats, table, w)
             out_p = gather_conv_plain(feats, table, w)
             torch.cuda.synchronize()
             err = float((out_k - out_p).abs().max())
             if not np.isfinite(err) or err > KERNEL_ATOL:
                 raise AssertionError(
                     f"gather_conv {row['table']} {cin}->{cout} ({tag}): max abs err {err} > {KERNEL_ATOL}")
+            if not torch.equal(out_k, again):
+                raise AssertionError(f"gather_conv {row['table']} {cin}->{cout} ({tag}): two launches differ")
+            del again
             ms = cuda_ms(lambda: gather_conv_kernel(feats, table, w), reps=20, flush=l2_flush)
             warm_ms = cuda_ms(lambda: gather_conv_kernel(feats, table, w), reps=20)
             plain_ms = cuda_ms(lambda: gather_conv_plain(feats, table, w), reps=3, warmup=1,
@@ -253,7 +259,8 @@ def phase_kernel(cfg, pair: dict, seed: int, device: str = "cuda") -> tuple[dict
                         "max_abs_err": err, "ms": ms, "warm_l2_ms": warm_ms, "plain_ms": plain_ms,
                         "ops_ms": t_ops, "bytes_ms": t_bytes, "bound_ms": max(t_ops, t_bytes),
                         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-                        "tflops": ops / ms / 1e9}
+                        "tflops": ops / ms / 1e9,
+                        **gather_conv_kernel.launch_shape(table.shape[0], cin, cout, 27)}
             total["err"] = max(total["err"], err)
         c = row["chunk"]
         total["ms"] += uses * c["ms"]
@@ -268,7 +275,9 @@ def phase_kernel(cfg, pair: dict, seed: int, device: str = "cuda") -> tuple[dict
             f"one-rotation err {row['one']['max_abs_err']:.2e} kernel {row['one']['ms']:.3f} ms "
             f"plain {row['one']['plain_ms']:.3f} ms | chunk of {chunk} int32 err {c['max_abs_err']:.2e} "
             f"kernel {c['ms']:.3f} ms (warm L2 {c['warm_l2_ms']:.3f}) plain {c['plain_ms']:.3f} ms bound {c['bound_ms']:.4f} ms "
-            f"({c['bound_by']}), {c['tflops']:.1f} TFLOP/s (tol {KERNEL_ATOL})")
+            f"({c['bound_by']}), {c['tflops']:.1f} TFLOP/s (tol {KERNEL_ATOL}, bit-equal twice); "
+            f"rows/CTA {c['rows_per_cta']}, channels/step {c['channels_per_step']}, stages {c['stages']}, "
+            f"cluster split {row['one']['cluster_split']} (one rotation) / {c['cluster_split']} (chunk)")
     progress(f"phase 3 kernel: 11 shapes within {KERNEL_ATOL}; one chunk's 20 convs: kernel "
              f"{total['ms']:.2f} ms (warm L2 {total['warm_l2_ms']:.2f} ms), plain {total['plain_ms']:.2f} ms, bound {total['bound_ms']:.3f} ms")
     return total, rows
@@ -407,7 +416,8 @@ def phase_block_kernels(cfg, pair: dict, seed: int, device: str = "cuda") -> tup
                  "torch.nn.functional.conv_transpose3d, stride 2, over each fine block's 3^3 region "
                  "(layouts made outside the timed span)"),
                 up_work(tbl, mask, cin, cout), 1, ("abs", KERNEL_ATOL),
-                f"{layer} [{lvl}] {cin}->{cout} B={tbl.shape[0]}")
+                f"{layer} [{lvl}] {cin}->{cout} B={tbl.shape[0]}",
+                launch=up_conv_kernel.launch_shape(cin, cout))
         del reg5
 
     for layer, lvl, ca, cb in SKIP_SHAPES:

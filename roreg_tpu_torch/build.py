@@ -10,6 +10,7 @@ raises with the compiler's output; nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -38,8 +39,12 @@ def nvcc() -> str:
     return cuda if os.path.exists(cuda) else (shutil.which("nvcc") or "nvcc")
 
 
-def needs_build(src: str, lib: str) -> bool:
-    return not os.path.exists(lib) or os.path.getmtime(lib) < os.path.getmtime(src)
+def needs_build(src: str, lib: str, deps: tuple[str, ...] = ()) -> bool:
+    """Whether ``lib`` is missing or older than ``src`` or one of the
+    headers ``deps`` it includes."""
+    if not os.path.exists(lib):
+        return True
+    return os.path.getmtime(lib) < max(os.path.getmtime(p) for p in (src, *deps))
 
 
 def compile_shared(cmd: list[str], src: str, lib: str, timeout: float = 600.0) -> float:
@@ -90,7 +95,8 @@ class CudaKernel:
     def build(self, force: bool = False) -> float:
         """Compile the source for sm_90a if the library is missing or stale
         (or ``force``); returns nvcc's seconds."""
-        if force or needs_build(self._src, self._so):
+        headers = tuple(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+        if force or needs_build(self._src, self._so, headers):
             return compile_shared([nvcc()] + NVCC_FLAGS, self._src, self._so)
         return 0.0
 

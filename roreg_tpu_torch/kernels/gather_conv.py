@@ -19,6 +19,7 @@ import ctypes
 import torch
 
 from roreg_tpu_torch.build import CudaKernel
+from roreg_tpu_torch.kernels.halo_conv import pack_weights
 
 __all__ = ["gather_conv", "gather_conv_plain", "gather_conv_kernel", "conv_work"]
 
@@ -40,10 +41,24 @@ def gather_conv_plain(
     return g.reshape(m, -1) @ weights.float().reshape(-1, weights.shape[-1])
 
 
+# the widths and kernel volumes the kernel takes: Cin in steps of 32
+# channels, Cout one wgmma tile's width, K offsets listed in one warp
+GATHER_COUTS = (32, 64, 128, 256)
+GATHER_MAX_K = 32
+
+
+def _check_widths(cin: int, cout: int, k: int) -> None:
+    if cin <= 0 or cin % 32 or cout not in GATHER_COUTS or not 1 <= k <= GATHER_MAX_K:
+        raise ValueError(
+            f"gather_conv kernel takes Cin in multiples of 32, Cout in {GATHER_COUTS} and "
+            f"1 <= K <= {GATHER_MAX_K}, got Cin={cin}, Cout={cout}, K={k}"
+        )
+
+
 class GatherConvKernel(CudaKernel):
     """The CUDA kernel's wrapper: builds and loads the library, checks its
-    arguments, launches on the current stream, and counts launches in
-    ``launches`` (one per launch, nowhere else)."""
+    arguments, packs the weights, launches on the current stream, and
+    counts launches in ``launches`` (one per launch, nowhere else)."""
 
     source = "gather_conv.cu"
 
@@ -51,13 +66,25 @@ class GatherConvKernel(CudaKernel):
         vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.gather_conv_bf16.restype = ci
         lib.gather_conv_bf16.argtypes = [vp, vp, vp, vp, i64, i64, ci, ci, ci, vp]
+        lib.gather_conv_launch_shape.restype = ci
+        pi = ctypes.POINTER(ci)
+        lib.gather_conv_launch_shape.argtypes = [i64, ci, ci, ci, pi, pi, pi, pi]
+
+    def launch_shape(self, m: int, cin: int, cout: int, k: int) -> dict:
+        """The kernel's launch shape for an (m, k) table at these widths:
+        output rows per tile, input channels per step, slots of its ring,
+        and thread blocks per tile (the cluster split of the tile's
+        offsets)."""
+        _check_widths(cin, cout, k)
+        rows, channels, stages, split = (ctypes.c_int() for _ in range(4))
+        rc = self._load().gather_conv_launch_shape(m, cin, cout, k, rows, channels, stages, split)
+        self.check_rc("gather_conv", rc)
+        return {"rows_per_cta": rows.value, "channels_per_step": channels.value,
+                "stages": stages.value, "cluster_split": split.value}
 
     def __call__(
         self, feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor
     ) -> torch.Tensor:
-        dev = feats.device
-        if dev.type != "cuda" or nbr.device != dev or weights.device != dev:
-            raise ValueError("gather_conv kernel: every tensor must be on one CUDA device")
         if feats.dtype != torch.bfloat16 or weights.dtype != torch.bfloat16:
             raise TypeError(
                 f"gather_conv kernel takes bf16 feats and weights, got "
@@ -73,22 +100,22 @@ class GatherConvKernel(CudaKernel):
                 f"shape mismatch: feats {tuple(feats.shape)}, nbr {tuple(nbr.shape)}, "
                 f"weights {tuple(weights.shape)}"
             )
-        if c % 32 or cout % 32 or not 1 <= k <= 32:
-            raise ValueError(
-                f"gather_conv kernel takes Cin and Cout in multiples of 32 and "
-                f"K <= 32, got Cin={c}, Cout={cout}, K={k}"
-            )
+        _check_widths(c, cout, k)
+        dev = feats.device
+        if dev.type != "cuda" or nbr.device != dev or weights.device != dev:
+            raise ValueError("gather_conv kernel: every tensor must be on one CUDA device")
         for name, t in (("feats", feats), ("nbr", nbr), ("weights", weights)):
             if not t.is_contiguous():
                 raise ValueError(f"gather_conv kernel: {name} must be contiguous")
-        if feats.data_ptr() % 16 or weights.data_ptr() % 16:
-            raise ValueError("gather_conv kernel: feats and weights must be 16-byte aligned")
+        if feats.data_ptr() % 16:
+            raise ValueError("gather_conv kernel: feats must be 16-byte aligned")
         lib = self._load()
         out = torch.empty((m, cout), dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
+            wp = pack_weights(weights, tap_major=True)
             rc = lib.gather_conv_bf16(
-                feats.data_ptr(), nbr.data_ptr(), weights.data_ptr(), out.data_ptr(),
+                feats.data_ptr(), nbr.data_ptr(), wp.data_ptr(), out.data_ptr(),
                 m, n, c, cout, k, stream,
             )
         self.check_rc("gather_conv", rc)

@@ -121,13 +121,18 @@ def halo_conv_plain(
     return out
 
 
-def pack_weights(w: torch.Tensor) -> torch.Tensor:
-    """(27, Cin, Cout) -> the kernel's weight stages, (Cin/16, 27, Cout/8,
-    2, 8, 8): stage (c, tap) holds ``w[tap, 16c:16c+16, :]`` with element
-    (k, n) at [n // 8, k // 8, n % 8, k % 8], wgmma's K-major layout of 8x8
-    core matrices without swizzle (``csrc/halo_conv.cu``)."""
-    _, cin, cout = w.shape
-    return w.view(27, cin // 16, 2, 8, cout // 8, 8).permute(1, 0, 4, 2, 5, 3).contiguous()
+def pack_weights(w: torch.Tensor, tap_major: bool = False) -> torch.Tensor:
+    """(K, Cin, Cout) -> the kernels' weight stages of 16 input channels,
+    each holding ``w[tap, 16c:16c+16, :]`` with element (k, n) at
+    [n // 8, k // 8, n % 8, k % 8], wgmma's K-major layout of 8x8 core
+    matrices without swizzle (``csrc/hopper.cuh`` ``b_desc``). Chunk-major,
+    (Cin/16, K, Cout/8, 2, 8, 8), for ``halo_conv`` and ``up_conv``, which
+    run every tap of a chunk before the next; tap-major, (K, Cin/16, Cout/8,
+    2, 8, 8), for ``gather_conv``, which runs every chunk of an offset
+    before the next."""
+    k, cin, cout = w.shape
+    order = (0, 1, 4, 2, 5, 3) if tap_major else (1, 0, 4, 2, 5, 3)
+    return w.view(k, cin // 16, 2, 8, cout // 8, 8).permute(*order).contiguous()
 
 
 class HaloConvKernel(CudaKernel):

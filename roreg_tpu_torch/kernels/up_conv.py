@@ -17,18 +17,20 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import itertools
 
 import numpy as np
 import torch
 
 from roreg_tpu_torch.build import CudaKernel
-from roreg_tpu_torch.kernels.halo_conv import BLOCK, CELLS
+from roreg_tpu_torch.kernels.halo_conv import BLOCK, CELLS, pack_weights
 
 __all__ = [
     "UP_CLASSES",
     "UP_CELL_INV",
     "up_parity_classes",
     "up_class_table",
+    "up_class_split",
     "up_conv",
     "up_conv_plain",
     "up_conv_kernel",
@@ -96,6 +98,24 @@ def up_class_table() -> np.ndarray:
     return table
 
 
+def up_class_split() -> np.ndarray:
+    """The kernel's split of the 8 parity classes between its two consumer
+    warpgroups: (8,) int32, warpgroup g runs classes ``[4g:4g+4]`` in that
+    order. The two halves of 4 classes each are the first (in lexicographic
+    order) whose larger tap count is least (13 and 14 of the 27 taps), each
+    in order of falling tap count."""
+    taps = [len(wrows) for _, wrows, _ in UP_CLASSES]
+    ids = range(len(UP_CLASSES))
+
+    def load(group):
+        return max(sum(taps[c] for c in group), sum(taps) - sum(taps[c] for c in group))
+
+    first = min(itertools.combinations(ids, len(UP_CLASSES) // 2), key=load)
+    second = [c for c in ids if c not in first]
+    order = [sorted(g, key=lambda c: (-taps[c], c)) for g in (first, second)]
+    return np.asarray(order[0] + order[1], np.int32)
+
+
 def _index(a: np.ndarray, device: torch.device) -> torch.Tensor:
     return torch.tensor(a, dtype=torch.long, device=device)
 
@@ -116,10 +136,23 @@ def up_conv_plain(reg: torch.Tensor, w: torch.Tensor, cell_mask: torch.Tensor) -
     return torch.where(cell_mask[..., None], out, torch.zeros((), device=out.device))
 
 
+# the widths the kernel takes: Cin a multiple of 32 up to 256 (its region
+# stays in shared memory), Cout one wgmma tile's width
+UP_CIN_MAX = 256
+UP_COUTS = (32, 64, 128)
+
+
+def _check_widths(cin: int, cout: int) -> None:
+    if cin % 32 or not 32 <= cin <= UP_CIN_MAX or cout not in UP_COUTS:
+        raise ValueError(
+            f"up_conv kernel takes Cin in multiples of 32 up to {UP_CIN_MAX} and Cout in "
+            f"{UP_COUTS}, got Cin={cin}, Cout={cout}")
+
+
 class UpConvKernel(CudaKernel):
     """The CUDA kernel's wrapper: checks its arguments, copies the static
-    maps to each device once, launches on the current stream, counts
-    launches in ``launches``."""
+    maps to each device once, packs the weights, launches on the current
+    stream, counts launches in ``launches``."""
 
     source = "up_conv.cu"
 
@@ -130,14 +163,21 @@ class UpConvKernel(CudaKernel):
     def _bind(self, lib: ctypes.CDLL) -> None:
         vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.up_conv_set_maps.restype = ci
-        lib.up_conv_set_maps.argtypes = [vp, ci]
+        lib.up_conv_set_maps.argtypes = [vp, ci, vp, ci]
         lib.up_conv_bf16.restype = ci
         lib.up_conv_bf16.argtypes = [vp, vp, vp, vp, i64, ci, ci, vp]
+        lib.up_conv_launch_shape.restype = ci
+        lib.up_conv_launch_shape.argtypes = [ci, ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
+
+    def launch_shape(self, cin: int, cout: int) -> dict:
+        """The kernel's launch shape for these widths: fine blocks per
+        thread block and the weight stages of each warpgroup's ring."""
+        _check_widths(cin, cout)
+        blocks, stages = ctypes.c_int(), ctypes.c_int()
+        self.check_rc("up_conv", self._load().up_conv_launch_shape(cin, cout, blocks, stages))
+        return {"blocks_per_cta": blocks.value, "stages": stages.value}
 
     def __call__(self, reg: torch.Tensor, w: torch.Tensor, cell_mask: torch.Tensor) -> torch.Tensor:
-        dev = reg.device
-        if dev.type != "cuda" or w.device != dev or cell_mask.device != dev:
-            raise ValueError("up_conv kernel: every tensor must be on one CUDA device")
         if reg.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
             raise TypeError(f"up_conv kernel takes bf16 regions and weights, got {reg.dtype} and {w.dtype}")
         if cell_mask.dtype != torch.bool:
@@ -152,25 +192,28 @@ class UpConvKernel(CudaKernel):
             raise ValueError(
                 f"shape mismatch: reg {tuple(reg.shape)}, w {tuple(w.shape)}, "
                 f"cell_mask {tuple(cell_mask.shape)}")
-        if cin % 16 or cout % 32:
-            raise ValueError(
-                f"up_conv kernel takes Cin in multiples of 16 and Cout in multiples of 32, "
-                f"got Cin={cin}, Cout={cout}")
+        _check_widths(cin, cout)
+        dev = reg.device
+        if dev.type != "cuda" or w.device != dev or cell_mask.device != dev:
+            raise ValueError("up_conv kernel: every tensor must be on one CUDA device")
         for name, t in (("reg", reg), ("w", w), ("cell_mask", cell_mask)):
             if not t.is_contiguous():
                 raise ValueError(f"up_conv kernel: {name} must be contiguous")
-        if reg.data_ptr() % 16 or w.data_ptr() % 16:
-            raise ValueError("up_conv kernel: reg and w must be 16-byte aligned")
+        if reg.data_ptr() % 16 or cell_mask.data_ptr() % 16:
+            raise ValueError("up_conv kernel: reg and cell_mask must be 16-byte aligned")
         lib = self._load()
         out = torch.empty((b, CELLS, cout), dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             if dev.index not in self._maps_on:
                 table = np.ascontiguousarray(up_class_table())
-                self.check_rc("up_conv (maps)", lib.up_conv_set_maps(table.ctypes.data, table.size))
+                split = np.ascontiguousarray(up_class_split())
+                self.check_rc("up_conv (maps)", lib.up_conv_set_maps(
+                    table.ctypes.data, table.size, split.ctypes.data, split.size))
                 self._maps_on.add(dev.index)
             stream = torch.cuda.current_stream(dev).cuda_stream
+            wp = pack_weights(w)
             rc = lib.up_conv_bf16(
-                reg.data_ptr(), w.data_ptr(), cell_mask.data_ptr(), out.data_ptr(), b, cin, cout, stream,
+                reg.data_ptr(), wp.data_ptr(), cell_mask.data_ptr(), out.data_ptr(), b, cin, cout, stream,
             )
         self.check_rc("up_conv", rc)
         self.launches += 1

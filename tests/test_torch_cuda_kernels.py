@@ -24,6 +24,7 @@ from roreg_tpu_torch.kernels.cell_dense import (  # noqa: E402
     dense_work,
 )
 from roreg_tpu_torch.kernels.gather_conv import gather_conv, gather_conv_kernel, gather_conv_plain  # noqa: E402
+from roreg_tpu_torch.kernels.halo_conv import pack_weights  # noqa: E402
 from roreg_tpu_torch.kernels.skip_concat import (  # noqa: E402
     concat_work,
     skip_concat,
@@ -33,6 +34,7 @@ from roreg_tpu_torch.kernels.skip_concat import (  # noqa: E402
 from roreg_tpu_torch.kernels.up_conv import (  # noqa: E402
     UP_CELL_INV,
     UP_CLASSES,
+    up_class_split,
     up_class_table,
     up_conv,
     up_conv_kernel,
@@ -45,6 +47,22 @@ from roreg_tpu_torch.kernels.up_conv import (  # noqa: E402
 UP_ATOL = 1e-3
 # f32 FFMA against F.linear's f32 sums: the order of <= 96 terms differs
 DENSE_RTOL = 1e-5
+# gather_conv: bf16 products are exact in f32; only the order of the f32
+# sums (at most K x Cin terms) differs
+GATHER_ATOL = 1e-3
+
+# (Cin, Cout) of the block decoder's three up convs
+UP_WIDTHS = [(256, 128), (256, 64), (128, 64)]
+# (Cin, Cout) of the gather engine's 11 conv shapes (ResUNetBN2C)
+GATHER_WIDTHS = [(32, 32), (32, 64), (64, 64), (64, 128), (128, 128), (128, 256), (256, 256),
+                 (256, 128), (256, 64), (128, 64), (64, 64)]
+
+
+def _stage_element(k, n):
+    """Element offset of (k, n) inside a packed 16-row weight stage: byte
+    (n/8)*256 + (k/8)*128 + (n%8)*16 + (k%8)*2, wgmma's K-major layout that
+    csrc/hopper.cuh b_desc names."""
+    return (n // 8) * 128 + (k // 8) * 64 + (n % 8) * 8 + k % 8
 
 
 def _region_inputs(rng, b, nsrc, cin, device="cpu"):
@@ -75,6 +93,72 @@ def test_up_class_table_encodes_the_classes():
         assert np.array_equal(row[9: 9 + k], wrows)
         assert np.array_equal(row[17:].reshape(8, 8)[:, :k], ridx)
     assert np.array_equal(np.concatenate([c for c, _, _ in UP_CLASSES])[UP_CELL_INV], np.arange(64))
+
+
+def test_up_class_split_covers_every_class_tap_once():
+    """The two warpgroups run 4 classes each, 13 and 14 taps, and between
+    them every (class, tap) pair, so every weight row, exactly once."""
+    split = up_class_split()
+    assert split.dtype == np.int32 and sorted(split.tolist()) == list(range(8))
+    pairs = [(int(c), int(w)) for c in split for w in UP_CLASSES[c][1]]
+    assert len(pairs) == len(set(pairs)) == 27
+    assert sorted(w for _, w in pairs) == list(range(27))
+    loads = sorted(sum(len(UP_CLASSES[c][1]) for c in half) for half in (split[:4], split[4:]))
+    assert loads == [13, 14]
+
+
+@pytest.mark.parametrize("cin,cout", UP_WIDTHS)
+def test_up_conv_weights_sit_where_the_kernel_reads_them(cin, cout):
+    """The producer warp reads stage (chunk c, tap) at (c * 27 + tap) *
+    16 * Cout elements of the packed weights (csrc/up_conv.cu), and element
+    (k, n) of it is w[tap, 16c + k, n]."""
+    w = torch.arange(27 * cin * cout, dtype=torch.int32).view(27, cin, cout)
+    flat = pack_weights(w).reshape(-1)
+    c, tap, k, n = np.meshgrid(np.arange(cin // 16), np.arange(27), np.arange(16), np.arange(cout),
+                               indexing="ij")
+    where = (c * 27 + tap) * 16 * cout + _stage_element(k, n)
+    assert torch.equal(flat[torch.from_numpy(where.reshape(-1))],
+                       w[torch.from_numpy(tap.reshape(-1)), torch.from_numpy((16 * c + k).reshape(-1)),
+                         torch.from_numpy(n.reshape(-1))])
+
+
+@pytest.mark.parametrize("cin,cout,kvol", sorted(set((ci, co, 27) for ci, co in GATHER_WIDTHS))
+                         + [(64, 32, 1), (32, 128, 8), (96, 64, 32)])
+def test_gather_conv_weights_sit_where_the_kernel_reads_them(cin, cout, kvol):
+    """The producer warp reads the weight stage of step (offset k,
+    32-channel chunk c) at (k * Cin/16 + 2c) * 16 * Cout elements of the
+    tap-major packed weights, its second 16 rows 16 * Cout elements on
+    (csrc/gather_conv.cu); element (k', n) of half h is w[k, 32c + 16h + k', n]."""
+    w = torch.arange(kvol * cin * cout, dtype=torch.int32).view(kvol, cin, cout)
+    flat = pack_weights(w, tap_major=True).reshape(-1)
+    assert flat.numel() == w.numel()
+    k, c, h, kk, n = np.meshgrid(np.arange(kvol), np.arange(cin // 32), np.arange(2), np.arange(16),
+                                 np.arange(cout), indexing="ij")
+    where = ((k * (cin // 16) + 2 * c) * 16 + h * 16) * cout + _stage_element(kk, n)
+    assert torch.equal(flat[torch.from_numpy(where.reshape(-1))],
+                       w[torch.from_numpy(k.reshape(-1)), torch.from_numpy((32 * c + 16 * h + kk).reshape(-1)),
+                         torch.from_numpy(n.reshape(-1))])
+
+
+@pytest.mark.parametrize("cin,cout", [(48, 64), (512, 64), (128, 256), (128, 96), (16, 32)])
+def test_up_conv_kernel_refuses_widths_it_does_not_take(cin, cout):
+    """Cin a multiple of 32 up to 256 (the region stays in shared memory),
+    Cout 32, 64 or 128; refused before any device is touched."""
+    reg = torch.zeros(3, 27, cin, dtype=torch.bfloat16)
+    w = torch.zeros(27, cin, cout, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="up_conv kernel takes"):
+        up_conv_kernel(reg, w, torch.zeros(3, 64, dtype=torch.bool))
+
+
+@pytest.mark.parametrize("cin,cout,kvol", [(48, 64, 27), (64, 96, 27), (64, 512, 27), (32, 64, 33),
+                                           (32, 64, 0)])
+def test_gather_conv_kernel_refuses_widths_it_does_not_take(cin, cout, kvol):
+    """Cin a multiple of 32, Cout 32, 64, 128 or 256, 1 <= K <= 32; refused
+    before any device is touched."""
+    feats = torch.zeros(10, cin, dtype=torch.bfloat16)
+    nbr = torch.full((70, kvol), -1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="gather_conv kernel takes"):
+        gather_conv_kernel(feats, nbr, torch.zeros(kvol, cin, cout, dtype=torch.bfloat16))
 
 
 def test_up_conv_plain_is_the_transposed_conv():
@@ -342,6 +426,94 @@ def test_up_conv_kernel_matches_plain_on_gpu(cuda_device, blocks, cin, cout):
     assert out.dtype == torch.float32 and out.shape == (blocks, 64, cout)
     assert float((out - ref).abs().max()) <= UP_ATOL
     assert bool((out[~mask] == 0).all())
+
+
+def _dead_run_mask(blocks, device):
+    """A (blocks, 64) fine cell mask with runs of live blocks, runs of dead
+    blocks longer than a thread block's 16, single dead blocks between live
+    ones, and a dead tail."""
+    rng = np.random.default_rng(blocks)
+    mask = rng.random((blocks, 64)) < 0.3
+    mask[5] = False  # one dead block between live ones
+    mask[40:90] = False  # a run of dead blocks
+    mask[100::7] = False
+    mask[-20:] = False
+    return torch.from_numpy(mask).to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks,cin,cout", [(203, 256, 128), (405, 256, 64), (1213, 128, 64)])
+def test_up_conv_kernel_dead_runs_on_gpu(cuda_device, blocks, cin, cout):
+    """Runs of dead fine blocks, a dead block between live ones and a block
+    count that is no multiple of the blocks per thread block; the dead
+    blocks' outputs are exactly 0."""
+    rng = np.random.default_rng(blocks + cin)
+    tbl, feats, _ = _region_inputs(rng, blocks, 900, cin, cuda_device)
+    mask = _dead_run_mask(blocks, cuda_device)
+    reg = block_gather(feats.bfloat16(), tbl)
+    w = (torch.randn(27, cin, cout, device=cuda_device) * (2 / (8 * cin)) ** 0.5).bfloat16()
+    shape = up_conv_kernel.launch_shape(cin, cout)
+    assert blocks % shape["blocks_per_cta"] != 0
+    out = up_conv(reg, w, mask)
+    torch.cuda.synchronize()
+    assert float((out - up_conv_plain(reg, w, mask)).abs().max()) <= UP_ATOL
+    assert bool((out[~mask] == 0).all())
+
+
+def _gather_table(rng, m, n, kvol):
+    """An (m, kvol) table into n rows with absent entries, whole tiles of
+    padding (all -1), tiles whose rows use only offsets 0 and kvol // 2, and
+    a ragged last tile."""
+    nbr = rng.integers(0, n, size=(m, kvol))
+    nbr[rng.random((m, kvol)) < 0.4] = -1
+    nbr[64:192] = -1  # two tiles of padding
+    few = nbr[256:320]
+    keep = np.zeros(kvol, bool)
+    keep[[0, kvol // 2]] = True
+    few[:, ~keep] = -1
+    nbr[-100:] = -1  # padding rows across the last tiles
+    return nbr.astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", GATHER_WIDTHS)
+def test_gather_conv_kernel_tiles_on_gpu(cuda_device, cin, cout):
+    """Each of the gather engine's 11 widths, with tiles of padding, tiles
+    that use a few offsets and a ragged last tile; two launches on the same
+    inputs are bit-equal."""
+    rng = np.random.default_rng(cin * 1000 + cout)
+    n, m = 2500, 64 * 9 + 37
+    nbr = torch.from_numpy(_gather_table(rng, m, n, 27)).to(cuda_device)
+    feats = torch.from_numpy(rng.normal(size=(n, cin)).astype(np.float32)).to(cuda_device).bfloat16()
+    w = (torch.randn(27, cin, cout, device=cuda_device) * (2 / (27 * cin)) ** 0.5).bfloat16()
+    out = gather_conv(feats, nbr, w)
+    again = gather_conv(feats, nbr, w)
+    torch.cuda.synchronize()
+    assert float((out - gather_conv_plain(feats, nbr, w)).abs().max()) <= GATHER_ATOL
+    assert torch.equal(out, again)
+    assert not bool(out[64:192].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,kvol", [(256, 256, 27), (128, 64, 27), (256, 32, 9)])
+def test_gather_conv_cluster_split_on_gpu(cuda_device, cin, cout, kvol):
+    """A coarse-level tile whose offsets the kernel splits between the
+    thread blocks of a cluster, at sizes with fewer offsets than blocks
+    too: within tolerance of the plain version, and bit-equal twice."""
+    n, m = 400, 150
+    shape = gather_conv_kernel.launch_shape(m, cin, cout, kvol)
+    assert shape["cluster_split"] > 1
+    rng = np.random.default_rng(kvol)
+    nbr = rng.integers(-1, n, size=(m, kvol)).astype(np.int32)
+    nbr[100:, 2:] = -1  # a tile with two offsets
+    nbr = torch.from_numpy(nbr).to(cuda_device)
+    feats = torch.from_numpy(rng.normal(size=(n, cin)).astype(np.float32)).to(cuda_device).bfloat16()
+    w = (torch.randn(kvol, cin, cout, device=cuda_device) * (2 / (kvol * cin)) ** 0.5).bfloat16()
+    out = gather_conv(feats, nbr, w)
+    again = gather_conv(feats, nbr, w)
+    torch.cuda.synchronize()
+    assert float((out - gather_conv_plain(feats, nbr, w)).abs().max()) <= GATHER_ATOL
+    assert torch.equal(out, again)
 
 
 OUT_OF_RANGE = """
