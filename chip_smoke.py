@@ -37,7 +37,17 @@ Phases, each ending in one flushed progress line on stderr:
 6. default chain: the same pair through ``PipelineConfig()``, the JAX
    package's default (block engine, RM matcher with 100 Sinkhorn
    iterations, top-match selection, ET, yohoo), full width; no block may be
-   dropped, and RM's matches must be a valid set.
+   dropped, and RM's matches must be a valid set;
+7. quality: the committed trained weights (``checkpoints/quality_full/``)
+   under ``quality_full_config()`` (conv1 kernel 5, chunks of 6 rotations)
+   on the JAX package's held-out benchmark scenes (4 + 4 scenes of 7
+   clouds). First the five block kernels against their plain versions at
+   chunk 6 on the first cloud (as phase 3b); then each of the 56 clouds is
+   described once into one store (each cloud ran 10 chunks of the five
+   block kernels, and no block was dropped), and the four chain variants
+   register all 168 pairs at keynum 1024. FMR, IR and RR must lie within
+   the bands of ``QUALITY_BANDS`` around the JAX package's rows for these
+   weights on the CPU; ``QUALITY.json``'s TPU rows are printed beside.
 
 Each slice checks the descriptor shapes and norms, the launch counts of
 every kernel (zeroed just before the run: each kernel of the path ran
@@ -134,6 +144,18 @@ DENSE_SHAPES = [
     ("conv1_tr", 64, 32, 64, False, True),
     ("final", 64, 0, 32, True, False),
 ]
+
+# phase 7's bands at keynum 1024 around the JAX package's rows for the same
+# weights and scenes on the CPU (checkpoints/quality_full/
+# jax_cpu_reference.json). IR and FMR of the two RD + RM variants are
+# deterministic given the weights (NMS and RM are): |IR - JAX| <= 0.03 and
+# |FMR - JAX| <= 0.04 on both splits. RR of full_rd_rm_et_yohoo is nearly so
+# (1000 of 1024 hypotheses scored): >= 0.97 on 3dmatch_analog, within 0.08
+# (7 of 84 pairs) of JAX's on 3dlomatch_analog. yohoc draws at random: its
+# RR >= 0.95 on 3dmatch_analog. QUALITY.json's TPU rows are printed beside.
+QUALITY_BANDS = {"ir": 0.03, "fmr": 0.04, "full_rr_hi_min": 0.97, "full_rr_lo": 0.08,
+                 "yohoc_rr_hi_min": 0.95}
+QUALITY_KEYNUM = 1024
 
 # the run ends itself (exit code 1, tracebacks on stderr) after this long;
 # it must end within 1200 s, builds included
@@ -289,7 +311,8 @@ def _bound(ops: int, nbytes: int, peak_flops: float = PEAK_BF16_FLOPS) -> dict:
             "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
 
 
-def phase_block_kernels(cfg, pair: dict, seed: int, device: str = "cuda") -> tuple[dict, list]:
+def phase_block_kernels(cfg, pair: dict, seed: int, device: str = "cuda",
+                        tag: str = "phase 3b block kernels") -> tuple[dict, list]:
     """The block engine's five kernels against their plain versions at every
     shape of one chunk's forward, on the main path's own upload of chunk 0
     of cloud 0. Returns (totals per kernel over one chunk's forward, rows)."""
@@ -451,7 +474,7 @@ def phase_block_kernels(cfg, pair: dict, seed: int, device: str = "cuda") -> tup
     for name, t in totals.items():
         t["bound_by"] = "operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes"
     progress(
-        f"phase 3b block kernels: chunk of {chunk} rotations, {blocks} occupied of "
+        f"{tag}: chunk of {chunk} rotations, {blocks} occupied of "
         f"{[o.shape[0] for o in occs]} blocks per level; one chunk's forward: " + "; ".join(
             f"{n} x{int(t['uses'])} kernel {t['ms']:.2f} ms, plain {t['plain_ms']:.2f} ms, library "
             f"{t['library_ms']:.2f} ms, bound {t['bound_ms']:.3f} ms ({t['bound_by']}), max err {t['err']:.1e}"
@@ -621,6 +644,99 @@ def phase_rm_reference(cfg, seed: int, device: str = "cuda") -> dict:
     return res
 
 
+def phase_quality(seed: int, per_chunk: dict, device: str = "cuda") -> dict:
+    """Phase 7: the trained weights on the held-out scenes (see the module
+    docstring). ``per_chunk``: the block kernels' launches per chunk."""
+    from roreg_tpu_torch.pipeline.extractor import effective_chunk
+    from roreg_tpu_torch.pipeline.quality_config import quality_full_config
+    from roreg_tpu_torch.pipeline.registration import RegistrationPipeline
+    from roreg_tpu_torch.quality import VARIANTS, describe_scenes, jax_references, quality_scenes, run_variants
+    from roreg_tpu_torch.weights import QUALITY_FULL_DIR, load_checkpoint_dir
+
+    t0 = time.perf_counter()
+    cfg = quality_full_config()
+    variables = load_checkpoint_dir(QUALITY_FULL_DIR, cfg)
+    groups = quality_scenes(cfg)
+    refs = jax_references()
+    ref = refs["cpu"]  # the bands' reference: the JAX package with these weights
+    cells = [f"{split}@{QUALITY_KEYNUM}" for split in groups]
+    missing = [(k, v, c) for k, r in refs.items() for v in VARIANTS for c in cells if c not in r.get(v, {})]
+    if missing:
+        raise AssertionError(f"the JAX reference rows {missing} are missing")
+    first = next(iter(groups["3dmatch_analog"].values()))
+    progress(f"phase 7 quality: weights and {sum(len(g) for g in groups.values())} scenes ready in "
+             f"{time.perf_counter() - t0:.1f} s")
+    chunk6, chunk6_rows = phase_block_kernels(
+        cfg, {"points0": first.clouds[0], "keys0": first.keypoints[0]}, seed, device,
+        tag=f"phase 7a block kernels at chunk {cfg.group_chunk}, conv1 kernel {cfg.conv1_kernel_size}")
+
+    pipe = RegistrationPipeline(cfg, variables, device=device)
+    kernels = _kernels()
+    for k in kernels.values():
+        k.launches = 0
+    store: dict = {}
+    described = describe_scenes(pipe, groups, store)
+    launches = {name: k.launches for name, k in kernels.items()}
+    del pipe
+    chunks = cfg.group_size // effective_chunk(cfg.group_size, cfg.group_chunk)
+    expected = {name: per_chunk.get(name, 0) * chunks * described["clouds"] for name in kernels}
+    if launches != expected:
+        raise AssertionError(f"phase 7 describe launches {launches}, expected {expected} "
+                             f"({chunks} chunks x {described['clouds']} clouds)")
+    if described["dropped_blocks"]:
+        raise AssertionError(f"phase 7: {described['dropped_blocks']} blocks dropped at {cfg.block_caps}")
+    k, g = cfg.num_keypoints, cfg.group_size
+    for key, (bb, gf, det) in store.items():
+        for name, x in (("bb", bb), ("gf", gf)):
+            if tuple(x.shape) != (k, g, 32) or not bool(torch.isfinite(x).all()):
+                raise AssertionError(f"phase 7 {key} {name}: shape {tuple(x.shape)} or non-finite values")
+    progress(f"phase 7b describe: {described['clouds']} clouds in {described['seconds']:.1f} s "
+             f"({described['seconds'] / described['clouds']:.3f} s a cloud), launches "
+             + ", ".join(f"{n} {c} = {per_chunk[n]} x {chunks} chunks x {described['clouds']} clouds"
+                         for n, c in launches.items() if c)
+             + ", 0 dropped blocks")
+
+    t1 = time.perf_counter()
+    progress("phase 7c pair stages at keynum 1024 (card; JAX on the CPU and on a TPU in brackets):")
+    results = run_variants(variables, cfg, groups, VARIANTS, [QUALITY_KEYNUM], store, device,
+                           log=lambda msg: progress("  " + msg))
+    pair_s = time.perf_counter() - t1
+    faults = []
+    hi, lo = cells
+    for v, rows in results.items():
+        for c in cells:
+            mine, jax_row = rows[c], ref[v][c]
+            if v in ("rd_rm_yohoc", "full_rd_rm_et_yohoo"):
+                for m in ("ir", "fmr"):
+                    if abs(mine[m] - jax_row[m]) > QUALITY_BANDS[m]:
+                        faults.append(f"{v} {c} {m.upper()} {mine[m]:.4f} vs JAX (CPU) {jax_row[m]:.4f} "
+                                      f"(band {QUALITY_BANDS[m]})")
+        rr_hi, rr_lo = rows[hi]["rr_pointdsc"], rows[lo]["rr_pointdsc"]
+        if v == "full_rd_rm_et_yohoo":
+            if rr_hi < QUALITY_BANDS["full_rr_hi_min"]:
+                faults.append(f"{v} {hi} RR {rr_hi:.4f} < {QUALITY_BANDS['full_rr_hi_min']}")
+            if abs(rr_lo - ref[v][lo]["rr_pointdsc"]) > QUALITY_BANDS["full_rr_lo"]:
+                faults.append(f"{v} {lo} RR {rr_lo:.4f} vs JAX (CPU) {ref[v][lo]['rr_pointdsc']:.4f} "
+                              f"(band {QUALITY_BANDS['full_rr_lo']})")
+        elif rr_hi < QUALITY_BANDS["yohoc_rr_hi_min"]:
+            faults.append(f"{v} {hi} RR {rr_hi:.4f} < {QUALITY_BANDS['yohoc_rr_hi_min']}")
+    if faults:
+        raise AssertionError("phase 7 quality outside its bands: " + "; ".join(faults))
+    rates = {}
+    for v, rows in results.items():
+        pairs = sum(rows[c]["pairs"] for c in cells)
+        rates[v] = pairs / sum(rows[c]["pairs"] / rows[c]["pairs_per_sec"] for c in cells)
+    n_pairs = sum(r[c]["pairs"] for r in results.values() for c in cells)
+    progress(f"phase 7 quality: all bands met; {n_pairs} pair stages in {pair_s:.1f} s; "
+             + ", ".join(f"{v} {r:.2f} pairs/s" for v, r in rates.items()))
+    return {"describe": described, "launches": launches, "expected_launches": expected,
+            "chunk6_kernels": {"totals": chunk6, "rows": chunk6_rows}, "results": results,
+            "jax": {k: {v: {c: r[v][c] for c in cells} for v in results} for k, r in refs.items()},
+            "pair_stages_s": pair_s,
+            "pairs_per_sec": rates,
+            "bands": QUALITY_BANDS, "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -654,6 +770,7 @@ def main() -> int:
         report["block_slice"] = phase_slice(block_cfg, pair, args.seed, block_per_chunk, "phase 5 block slice")
         report["default_slice"] = phase_slice(
             default_cfg, pair, args.seed, block_per_chunk, "phase 6 default chain (block engine + RM)")
+        report["quality"] = phase_quality(args.seed, block_per_chunk)
         report["total_s"] = time.perf_counter() - T0
         entries = [{
             "name": "gather_conv",

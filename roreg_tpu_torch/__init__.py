@@ -9,8 +9,12 @@ Implemented: inference registration of one scan pair through either
 describe engine, the block-dense engine (``engine="block"``, the default)
 or the gather engine (``engine="gather"``), over host-built maps, with the
 RM matcher (``use_rm=True``, the default) or the mutual-NN matcher
-(``use_rm=False``), and the yohoo estimator: ``PipelineConfig()`` with no
-argument runs. On the GPU every gather conv of the gather engine runs the
+(``use_rm=False``), and the yohoo or yohoc estimator: ``PipelineConfig()``
+with no argument runs. ``eval.evaluator.Evaluator`` describes each cloud of
+a scene once and registers its pairs from the stored descriptors, and
+``python -m roreg_tpu_torch.quality`` runs the JAX package's held-out
+quality benchmark with the committed trained weights
+(``checkpoints/quality_full/``). On the GPU every gather conv of the gather engine runs the
 hand-written CUDA kernel of ``csrc/gather_conv.cu``; on the block engine
 every same-level and stride-2 conv runs ``csrc/halo_conv.cu``, every
 block-table gather (conv1's occupancy, the up convs' coarse regions)

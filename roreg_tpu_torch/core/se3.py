@@ -1,4 +1,5 @@
-"""SE(3) helpers: rigid transforms and the weighted Kabsch fit.
+"""SE(3) helpers: rigid transforms, the weighted Kabsch fit and 3-point
+hypotheses.
 
 Counterpart of ``roreg_tpu/core/se3.py``. Transforms are (…, 4, 4) with
 ``points0 ≈ R @ points1 + t`` for ground-truth pairs.
@@ -12,6 +13,7 @@ __all__ = [
     "transform_points",
     "make_transform",
     "kabsch_weighted",
+    "three_points_to_transform",
     "refine_transform",
 ]
 
@@ -49,6 +51,11 @@ def kabsch_weighted(
     R = torch.einsum("...ij,...j,...jk->...ik", U, D, Vt)
     t = c_dst - torch.einsum("...ij,...j->...i", R, c_src)
     return make_transform(R, t)
+
+
+def three_points_to_transform(kps0: torch.Tensor, kps1: torch.Tensor) -> torch.Tensor:
+    """Rigid transform of (…, 3, 3) point triples: ``kps0 ≈ R kps1 + t``."""
+    return kabsch_weighted(kps1, kps0, torch.ones(kps1.shape[:-1], dtype=kps1.dtype, device=kps1.device))
 
 
 def refine_transform(

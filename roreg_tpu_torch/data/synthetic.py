@@ -3,14 +3,18 @@
 Copies of ``_bumpy``, ``synthetic_surface`` and ``_random_rotation`` from
 ``roreg_tpu/data/synthetic.py``, plus :func:`synthetic_pair`, which crops
 two overlapping fragments of one surface and moves them into their own
-frames, as ``make_synthetic_scene`` does, without writing files.
+frames, as ``make_synthetic_scene`` does, without writing files, and
+:func:`synthetic_scene`, which makes exactly ``make_synthetic_scene``'s
+draws and returns in memory what its files hold.
 """
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 
-__all__ = ["synthetic_surface", "synthetic_pair"]
+__all__ = ["synthetic_surface", "synthetic_pair", "SyntheticScene", "synthetic_scene"]
 
 
 def _bumpy(rng: np.random.Generator, uv: np.ndarray, extent: float,
@@ -100,3 +104,57 @@ def synthetic_pair(
         "keys1": keys[1],
         "T_gt": frames[0] @ np.linalg.inv(frames[1]),
     }
+
+
+@dataclass
+class SyntheticScene:
+    """A scene of overlapping fragments: float32 ``clouds`` (N, 3) and
+    ``keypoints`` (K, 3) per fragment, and the ground truth of every pair
+    (i, j), i < j, in ``gt`` as float64 (4, 4) with ``clouds[i] = T @
+    clouds[j]``."""
+
+    name: str
+    clouds: list[np.ndarray]
+    keypoints: list[np.ndarray]
+    gt: dict[tuple[int, int], np.ndarray]
+
+
+def synthetic_scene(
+    rng: np.random.Generator,
+    num_clouds: int = 3,
+    points_per_cloud: int = 20000,
+    num_keypoints: int = 512,
+    overlap: float = 0.7,
+    max_angle_deg: float = 50.0,
+    surface_extent: float = 3.0,
+    name: str = "",
+) -> SyntheticScene:
+    """``make_synthetic_scene``'s scene made in memory: the same draws from
+    ``rng`` in the same order (so the stream is left where that function
+    leaves it), clouds cast to float32 as its PLY files store them,
+    keypoints read from the float32 clouds at its keypoint ids, and gt in
+    the order of its gt.log."""
+    base = synthetic_surface(
+        rng, int(points_per_cloud / overlap * 1.5), extent=surface_extent
+    )
+    extent = base[:, 0].max() - base[:, 0].min()
+    frames, clouds, keypoints = [], [], []
+    for k in range(num_clouds):
+        lo = k * (1 - overlap) * extent / max(num_clouds - 1, 1) * 0.5
+        sel = base[(base[:, 0] >= lo) & (base[:, 0] <= lo + extent * overlap)]
+        sel = sel[rng.permutation(len(sel))[:points_per_cloud]]
+        R = _random_rotation(rng, max_angle_deg)
+        t = rng.uniform(-1, 1, size=3)
+        T = np.eye(4)
+        T[:3, :3] = R
+        T[:3, 3] = t
+        cloud = (sel @ R.T + t).astype(np.float32)
+        frames.append(T)
+        clouds.append(cloud)
+        keypoints.append(cloud[rng.permutation(len(cloud))[:num_keypoints]])
+    gt = {
+        (i, j): frames[i] @ np.linalg.inv(frames[j])
+        for i in range(num_clouds)
+        for j in range(i + 1, num_clouds)
+    }
+    return SyntheticScene(name, clouds, keypoints, gt)

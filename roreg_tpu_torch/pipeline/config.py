@@ -83,11 +83,7 @@ def check_supported(cfg: PipelineConfig) -> None:
             "host_maps=False (device-built pyramids) is not ported: "
             "ROADMAP.md queue A, item A9; use host_maps=True"
         )
-    if cfg.estimator == "yohoc":
-        raise NotImplementedError(
-            "estimator='yohoc' is not ported yet: ROADMAP.md queue A, item A3"
-        )
-    if cfg.estimator != "yohoo":
+    if cfg.estimator not in ("yohoo", "yohoc"):
         raise ValueError(f"unknown estimator {cfg.estimator!r}")
     if cfg.backbone_variant.startswith("ResUNetIN") or cfg.backbone_variant.startswith("SimpleNet"):
         raise NotImplementedError(

@@ -5,16 +5,22 @@ Counterpart of ``roreg_tpu/pipeline/registration.py`` (``gf_apply``,
 ``rd_apply``, ``rm_apply``, ``et_apply`` and ``RegistrationPipeline``):
 the RM matcher with its top-match selection (``use_rm=True``, the
 default) or mutual nearest neighbours of group-mean descriptors
-(``use_rm=False``), then the ET residual quaternions and yohoo RANSAC.
+(``use_rm=False``), then the ET residual quaternions and yohoo RANSAC, or
+yohoc RANSAC (``estimator="yohoc"``). ``pair_stage`` (match and estimate
+on sampled keypoint sets) is the one code path of both entry points:
+``register_pair`` (two clouds) and ``register_pair_from_descriptors`` (two
+clouds' stored descriptors, as the evaluator keeps them).
 Side convention as in the reference: gt satisfies ``pts0 = R @ pts1 + t``,
 and RM and ET take cloud 1 as their source.
 
 The describe runs the block engine (``engine="block"``, the default) or
 the gather engine (``engine="gather"``).
 
-Random draws are inputs: ``perm`` (the RANSAC hypothesis order) and, with
-``use_rd=False``, ``noise0``/``noise1`` (the keypoint sampling priorities).
-When they are not given they are drawn from ``generator``.
+Random draws are inputs: ``perm`` (yohoo's hypothesis order), ``buckets``
+and ``gumbel`` (yohoc's group indices and triple noise) and, with
+``use_rd=False``, ``noise0``/``noise1`` (the keypoint sampling
+priorities). When they are not given they are drawn from ``generator``, on
+its device.
 """
 
 from __future__ import annotations
@@ -47,6 +53,12 @@ from roreg_tpu_torch.pipeline.matcher import (
 from roreg_tpu_torch.weights import build_modules, load_variables
 
 __all__ = ["RegistrationPipeline", "gf_apply", "rd_apply", "rm_apply", "et_apply"]
+
+
+def _draw_device(generator: torch.Generator | None) -> torch.device:
+    """Where draws from ``generator`` are made (the CPU's default generator
+    when there is none)."""
+    return generator.device if generator is not None else torch.device("cpu")
 
 
 def _chunks(n: int, bs: int):
@@ -127,6 +139,8 @@ class RegistrationPipeline:
         return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
     def _tensor(self, x, dtype=torch.float32) -> torch.Tensor:
+        if isinstance(x, torch.Tensor):
+            return x.to(device=self.device, dtype=dtype)
         return torch.as_tensor(np.asarray(x), dtype=dtype).to(self.device)
 
     # ---- stages ----
@@ -166,10 +180,104 @@ class RegistrationPipeline:
         if cfg.use_rd:
             return nms_sample(keys, det_scores, kp_mask, cfg.keynum, cfg.nms_k)
         if noise is None:
-            noise = torch.rand(keys.shape[0], generator=generator)
+            noise = torch.rand(keys.shape[0], generator=generator, device=_draw_device(generator))
         noise = self._tensor(noise)
         prio = torch.where(kp_mask, noise, torch.full_like(noise, -1.0))
         return top_k_indices(prio, cfg.keynum)
+
+    @torch.inference_mode()
+    def pair_stage(
+        self,
+        bb0_s, bb1_s, gf0_s, gf1_s, k0_s, k1_s,
+        *,
+        perm=None,
+        buckets=None,
+        gumbel=None,
+        generator: torch.Generator | None = None,
+    ) -> dict[str, torch.Tensor]:
+        """Match and estimate on sampled keypoint sets (``keynum`` rows
+        each): RM with its top-match selection or mutual NN, the group index
+        of each match, then ET and yohoo or yohoc. The draws (``perm`` for
+        yohoo, ``buckets`` and ``gumbel`` for yohoc) are drawn from
+        ``generator`` when not given.
+
+        Returns ``transform``, ``overlap``, ``winner`` (the winning
+        hypothesis: a match for yohoo, an iteration for yohoc), ``m0`` and
+        ``m1`` (each match's rows in the two sets), ``match_valid``,
+        ``match_scores``, ``est_valid`` and ``dr_index``."""
+        cfg = self.cfg
+        m = gf1_s.shape[0]
+        if cfg.use_rm:
+            pair, mvalid, mscores = rm_apply(self.nets["rm"], gf0_s, gf1_s, k0_s, k1_s)
+            m0, m1 = pair[:, 0], pair[:, 1]
+            est_valid = top_match_subset(mscores, mvalid, cfg.match_n)
+        else:
+            ones = torch.ones(m, dtype=torch.bool, device=self.device)
+            nn01, mvalid = mutual_match(gf0_s, gf1_s, ones, ones)
+            m0, m1 = torch.arange(m, device=self.device), nn01
+            mscores = torch.ones(m, device=self.device)
+            est_valid = mvalid
+        keys_m0, keys_m1 = k0_s[m0], k1_s[m1]
+        dr = est.dr_index(gf0_s[m0], gf1_s[m1], self.cayley)
+        if cfg.estimator == "yohoo":
+            quats = et_apply(self.nets["et"], bb0_s[m0], bb1_s[m1], gf0_s[m0], gf1_s[m1], dr, cfg)
+            T_hyp = est.local_transforms(quats, dr, keys_m0, keys_m1, self.rotations)
+            if perm is None:
+                perm = torch.randperm(m, generator=generator, device=_draw_device(generator))
+            T, overlap, winner = est.yohoo_ransac(
+                self._tensor(perm, torch.long), T_hyp, est_valid, keys_m0, keys_m1, mscores,
+                est_valid, cfg.ransac_ird, cfg.max_iter,
+            )
+        else:
+            if buckets is None or gumbel is None:
+                buckets, gumbel = est.yohoc_draws(dr, est_valid, cfg.max_iter, cfg.group_size, generator)
+            T, overlap, winner = est.yohoc_ransac(
+                self._tensor(buckets, torch.long), self._tensor(gumbel), dr, keys_m0, keys_m1,
+                mscores, est_valid, cfg.ransac_ird, cfg.group_size,
+            )
+        return {
+            "transform": T,
+            "overlap": overlap,
+            "winner": winner,
+            "m0": m0,
+            "m1": m1,
+            "match_valid": mvalid,
+            "match_scores": mscores,
+            "est_valid": est_valid,
+            "dr_index": dr,
+        }
+
+    @torch.inference_mode()
+    def register_pair_from_descriptors(
+        self,
+        bb0, gf0, det0, kp0,
+        bb1, gf1, det1, kp1,
+        *,
+        noise0=None,
+        noise1=None,
+        perm=None,
+        buckets=None,
+        gumbel=None,
+        generator: torch.Generator | None = None,
+    ) -> dict[str, torch.Tensor]:
+        """From each cloud's full descriptors (``bb``, ``gf`` (K, G, 32),
+        ``det`` (K,) or None without RD, keypoints ``kp`` (K, 3)) to the
+        transform: keypoint sampling (NMS, or with ``use_rd=False`` the top
+        ``noise`` priorities), then :meth:`pair_stage`. Adds ``sample0`` and
+        ``sample1`` to its outputs."""
+        kp0, kp1 = self._tensor(kp0), self._tensor(kp1)
+        s = [
+            self.sample_keypoints(
+                kp, det, torch.ones(kp.shape[0], dtype=torch.bool, device=self.device), noise, generator
+            )
+            for kp, det, noise in ((kp0, det0, noise0), (kp1, det1, noise1))
+        ]
+        out = self.pair_stage(
+            bb0[s[0]], bb1[s[1]], gf0[s[0]], gf1[s[1]], kp0[s[0]], kp1[s[1]],
+            perm=perm, buckets=buckets, gumbel=gumbel, generator=generator,
+        )
+        out["sample0"], out["sample1"] = s
+        return out
 
     @torch.inference_mode()
     def register_pair(
@@ -181,6 +289,8 @@ class RegistrationPipeline:
         perm=None,
         noise0=None,
         noise1=None,
+        buckets=None,
+        gumbel=None,
         generator: torch.Generator | None = None,
         timings: dict[str, float] | None = None,
     ) -> dict[str, torch.Tensor]:
@@ -222,48 +332,13 @@ class RegistrationPipeline:
         s1 = self.sample_keypoints(k1, det1, kp_mask1, noise1, generator)
         lap("gf_rd_nms")
 
-        gf0_s, gf1_s = gf0[s0], gf1[s1]
-        k0_s, k1_s = k0[s0], k1[s1]
-        if cfg.use_rm:
-            pair, mvalid, mscores = rm_apply(self.nets["rm"], gf0_s, gf1_s, k0_s, k1_s)
-            m0, m1 = pair[:, 0], pair[:, 1]
-            est_valid = top_match_subset(mscores, mvalid, cfg.match_n)
-        else:
-            ones = torch.ones(cfg.keynum, dtype=torch.bool, device=self.device)
-            nn01, mvalid = mutual_match(gf0_s, gf1_s, ones, ones)
-            m0 = torch.arange(cfg.keynum, device=self.device)
-            m1 = nn01
-            mscores = torch.ones(cfg.keynum, device=self.device)
-            est_valid = mvalid
-        keys_m0, keys_m1 = k0_s[m0], k1_s[m1]
-
-        dr = est.dr_index(gf0_s[m0], gf1_s[m1], self.cayley)
-        quats = et_apply(
-            self.nets["et"], bb0[s0][m0], bb1[s1][m1], gf0_s[m0], gf1_s[m1], dr, cfg
-        )
-        T_hyp = est.local_transforms(quats, dr, keys_m0, keys_m1, self.rotations)
-        if perm is None:
-            perm = torch.randperm(T_hyp.shape[0], generator=generator)
-        perm = self._tensor(perm, torch.long)
-        T, overlap, winner = est.yohoo_ransac(
-            perm, T_hyp, est_valid, keys_m0, keys_m1, mscores, est_valid,
-            cfg.ransac_ird, cfg.max_iter,
+        out = self.pair_stage(
+            bb0[s0], bb1[s1], gf0[s0], gf1[s1], k0[s0], k1[s1],
+            perm=perm, buckets=buckets, gumbel=gumbel, generator=generator,
         )
         lap("match_et_ransac")
-        out = {
-            "transform": T,
-            "overlap": overlap,
-            "matches": torch.stack([s0[m0], s1[m1]], -1),
-            "match_valid": mvalid,
-            "match_scores": mscores,
-            "est_valid": est_valid,
-            "dr_index": dr,
-            "winner": winner,
-            "sample0": s0,
-            "sample1": s1,
-            "bb0": bb0,
-            "gf0": gf0,
-        }
+        out["matches"] = torch.stack([s0[out.pop("m0")], s1[out.pop("m1")]], -1)
+        out.update(sample0=s0, sample1=s1, bb0=bb0, gf0=gf0)
         if dropped:
             out["dropped_blocks"] = torch.tensor(dropped, device=self.device)
         return out

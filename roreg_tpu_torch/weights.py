@@ -14,11 +14,16 @@ onto the port's modules, whose submodules carry the flax names:
 
 Nothing here imports flax or orbax: callers restore checkpoints themselves
 and pass numpy arrays; :func:`flatten_variables` gives any tree as a flat
-state_dict.
+state_dict. :func:`load_checkpoint_dir` reads a converted checkpoint set
+(one float32 ``.npz`` of flat keys per network and the set's
+``config_tag.json``), such as the committed quality weights in
+``checkpoints/quality_full/`` (written by ``tests/test_torch_quality_weights.py``).
 """
 
 from __future__ import annotations
 
+import json
+import os
 from typing import Any, Iterator
 
 import numpy as np
@@ -43,7 +48,14 @@ __all__ = [
     "flatten_variables",
     "unflatten_variables",
     "init_variables",
+    "load_checkpoint_dir",
+    "CHECKPOINT_COMPONENTS",
+    "QUALITY_FULL_DIR",
 ]
+
+CHECKPOINT_COMPONENTS = ("backbone", "gf", "rd", "rm", "et")
+# the committed quality weights, trained under quality_full_config()
+QUALITY_FULL_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "checkpoints", "quality_full")
 
 
 def build_modules(cfg: PipelineConfig) -> dict[str, nn.Module]:
@@ -181,4 +193,30 @@ def init_variables(cfg: PipelineConfig, seed: int = 0) -> dict[str, dict]:
                 a = np.zeros(shape, np.float32)
             flat["/".join(path)] = a
         out[name] = unflatten_variables(flat)
+    return out
+
+
+def load_checkpoint_dir(path: str, cfg: PipelineConfig) -> dict[str, dict]:
+    """A converted checkpoint set -> ``{component: nested numpy variables}``
+    for all five networks. Raises ``ValueError`` when the set's
+    ``config_tag.json`` names another configuration than ``cfg`` (small
+    against full, voxel size or group size): parameter shapes do not
+    depend on them, so such a set would load silently and skew every
+    number."""
+    from roreg_tpu_torch.pipeline.quality_config import quality_small_config
+
+    with open(os.path.join(path, "config_tag.json")) as f:
+        tag = json.load(f)
+    small = cfg.voxel_size == quality_small_config(cfg.group_size).voxel_size
+    have = {"small": small, "voxel_size": cfg.voxel_size, "group_size": cfg.group_size}
+    bad = {k: (tag[k], v) for k, v in have.items() if k in tag and tag[k] != v}
+    if bad:
+        raise ValueError(f"checkpoint config mismatch in {path}: (tag, config) {bad}")
+    missing = [c for c in CHECKPOINT_COMPONENTS if not os.path.exists(os.path.join(path, f"{c}.npz"))]
+    if missing:
+        raise FileNotFoundError(f"{path} lacks {missing}")
+    out = {}
+    for comp in CHECKPOINT_COMPONENTS:
+        with np.load(os.path.join(path, f"{comp}.npz")) as z:
+            out[comp] = unflatten_variables({k: z[k] for k in z.files})
     return out

@@ -36,7 +36,8 @@ def test_no_jax_imports_in_port():
         "roreg_tpu_torch/sparse/block.py", "roreg_tpu_torch/native/blockpyr.py",
         "roreg_tpu_torch/pipeline/extractor.py", "roreg_tpu_torch/kernels/up_conv.py",
         "roreg_tpu_torch/kernels/cell_dense.py", "roreg_tpu_torch/kernels/skip_concat.py",
-        "roreg_tpu_torch/models/rm.py", "chip_smoke.py",
+        "roreg_tpu_torch/models/rm.py", "roreg_tpu_torch/eval/evaluator.py",
+        "roreg_tpu_torch/quality.py", "roreg_tpu_torch/weights.py", "chip_smoke.py",
     } <= scanned
     bad = []
     for path in _port_sources():
@@ -83,13 +84,24 @@ def test_entry_point_needs_cuda_unless_cpu(monkeypatch):
 
 @pytest.mark.parametrize(
     "change,item",
-    [({"estimator": "yohoc"}, "A3"), ({"host_maps": False}, "A9"),
-     ({"backbone_variant": "ResUNetIN2C"}, "A8")],
+    [({"host_maps": False}, "A9"), ({"backbone_variant": "ResUNetIN2C"}, "A8")],
 )
 def test_unported_options_raise(change, item):
     cfg = PipelineConfig(**{**SMALL, **change})
     with pytest.raises(NotImplementedError, match=item):
         RegistrationPipeline(cfg, {}, device="cpu")
+
+
+def test_yohoc_is_accepted():
+    """The yohoc estimator is ported: a pipeline builds with it, and an
+    unknown estimator is still refused."""
+    from roreg_tpu_torch.pipeline.config import check_supported
+
+    cfg = PipelineConfig(**{**SMALL, "estimator": "yohoc"})
+    check_supported(cfg)
+    assert RegistrationPipeline(cfg, init_variables(cfg, 0), device="cpu").cfg.estimator == "yohoc"
+    with pytest.raises(ValueError, match="unknown estimator"):
+        check_supported(PipelineConfig(**{**SMALL, "estimator": "ransac"}))
 
 
 def test_default_config_is_supported():
