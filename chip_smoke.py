@@ -45,9 +45,29 @@ Phases, each ending in one flushed progress line on stderr:
    chunk 6 on the first cloud (as phase 3b); then each of the 56 clouds is
    described once into one store (each cloud ran 10 chunks of the five
    block kernels, and no block was dropped), and the four chain variants
-   register all 168 pairs at keynum 1024. FMR, IR and RR must lie within
-   the bands of ``QUALITY_BANDS`` around the JAX package's rows for these
-   weights on the CPU; ``QUALITY.json``'s TPU rows are printed beside.
+   register all 168 pairs at keynum 1024. FMR, IR, RR and the Predator
+   protocol's RR must lie within the bands of ``QUALITY_BANDS`` around the
+   JAX package's rows for these weights on the CPU; ``QUALITY.json``'s TPU
+   rows are printed beside. Last, the pose-sync probe on the first
+   3dmatch_analog scene (21 pairs, pair 0 corrupted by 90 degrees and 1 m):
+   the synchronized RR may fall at most one pair below the raw RR, and
+   must beat the corrupted RR where pair 0 registered in the raw run;
+8a. bench kernels: phase 3b's check at the bench's block capacities
+   (2880, 832, 240, 80) and at its fallback (3072, 1024, 512, 256), chunk
+   10, on the bench's cloud 0;
+8b. bench: ``roreg_tpu_torch.bench.run_bench`` once at its full
+   configuration (8 clouds, 28 pairs, both timed phases); its JSON line is
+   printed, each phase must give 28 finite transforms, each describe must
+   have run 6 chunks of the five block kernels, and no block may be
+   dropped after a fallback rebuild. Then a host build made to raise on
+   the builder thread must end a bench with that exception within 60 s;
+9. CLIs: ``cli.demo``, ``cli.testset --dataset demo`` (into the npz
+   cache) and ``cli.test --testset demo`` through ``main(argv)`` in a
+   temporary directory with random weights; the test run must read both
+   clouds from the cache (no kernel launch), write ``pre.log`` and
+   ``results.log``, and give no Predator RR (2 clouds); then ``cli.test
+   --testset synthetic`` (4 clouds, 6 pairs), whose Predator RR must be a
+   number.
 
 Each slice checks the descriptor shapes and norms, the launch counts of
 every kernel (zeroed just before the run: each kernel of the path ran
@@ -152,9 +172,14 @@ DENSE_SHAPES = [
 # |FMR - JAX| <= 0.04 on both splits. RR of full_rd_rm_et_yohoo is nearly so
 # (1000 of 1024 hypotheses scored): >= 0.97 on 3dmatch_analog, within 0.08
 # (7 of 84 pairs) of JAX's on 3dlomatch_analog. yohoc draws at random: its
-# RR >= 0.95 on 3dmatch_analog. QUALITY.json's TPU rows are printed beside.
+# RR >= 0.95 on 3dmatch_analog. The Predator protocol's RR (the 60
+# non-consecutive pairs of a split) has the same bands. QUALITY.json's TPU
+# rows are printed beside.
 QUALITY_BANDS = {"ir": 0.03, "fmr": 0.04, "full_rr_hi_min": 0.97, "full_rr_lo": 0.08,
                  "yohoc_rr_hi_min": 0.95}
+# the pose-sync probe: the synchronized RR may lose at most this many of
+# its pairs against the raw RR
+POSE_SYNC_SLACK_PAIRS = 1
 QUALITY_KEYNUM = 1024
 
 # the run ends itself (exit code 1, tracebacks on stderr) after this long;
@@ -650,7 +675,9 @@ def phase_quality(seed: int, per_chunk: dict, device: str = "cuda") -> dict:
     from roreg_tpu_torch.pipeline.extractor import effective_chunk
     from roreg_tpu_torch.pipeline.quality_config import quality_full_config
     from roreg_tpu_torch.pipeline.registration import RegistrationPipeline
-    from roreg_tpu_torch.quality import VARIANTS, describe_scenes, jax_references, quality_scenes, run_variants
+    from roreg_tpu_torch.quality import (
+        VARIANTS, describe_scenes, jax_pose_sync, jax_references, pose_sync_probe, quality_scenes, run_variants,
+    )
     from roreg_tpu_torch.weights import QUALITY_FULL_DIR, load_checkpoint_dir
 
     t0 = time.perf_counter()
@@ -720,6 +747,25 @@ def phase_quality(seed: int, per_chunk: dict, device: str = "cuda") -> dict:
                               f"(band {QUALITY_BANDS['full_rr_lo']})")
         elif rr_hi < QUALITY_BANDS["yohoc_rr_hi_min"]:
             faults.append(f"{v} {hi} RR {rr_hi:.4f} < {QUALITY_BANDS['yohoc_rr_hi_min']}")
+        pred_hi, pred_lo = rows[hi]["rr_predator"], rows[lo]["rr_predator"]
+        if pred_hi is None or pred_lo is None:
+            faults.append(f"{v}: no Predator RR ({pred_hi}, {pred_lo})")
+        elif v == "full_rd_rm_et_yohoo":
+            if pred_hi < QUALITY_BANDS["full_rr_hi_min"]:
+                faults.append(f"{v} {hi} Predator RR {pred_hi:.4f} < {QUALITY_BANDS['full_rr_hi_min']}")
+            if abs(pred_lo - ref[v][lo]["rr_predator"]) > QUALITY_BANDS["full_rr_lo"]:
+                faults.append(f"{v} {lo} Predator RR {pred_lo:.4f} vs JAX (CPU) {ref[v][lo]['rr_predator']:.4f} "
+                              f"(band {QUALITY_BANDS['full_rr_lo']})")
+        elif pred_hi < QUALITY_BANDS["yohoc_rr_hi_min"]:
+            faults.append(f"{v} {hi} Predator RR {pred_hi:.4f} < {QUALITY_BANDS['yohoc_rr_hi_min']}")
+    probe = pose_sync_probe(variables, cfg, first, store, device)
+    slack = POSE_SYNC_SLACK_PAIRS / probe["pairs"]
+    if probe["rr_corrupted_synced"] < probe["rr_raw"] - slack:
+        faults.append(f"pose sync: synchronized RR {probe['rr_corrupted_synced']:.4f} below raw "
+                      f"{probe['rr_raw']:.4f} - {slack:.4f}")
+    if probe["pair0_registered"] and probe["rr_corrupted_synced"] <= probe["rr_corrupted"]:
+        faults.append(f"pose sync did not overrule the corrupted pair: {probe}")
+    progress(f"phase 7 pose-sync probe on {first.name}: {probe} (JAX on a TPU: {jax_pose_sync()})")
     if faults:
         raise AssertionError("phase 7 quality outside its bands: " + "; ".join(faults))
     rates = {}
@@ -734,7 +780,162 @@ def phase_quality(seed: int, per_chunk: dict, device: str = "cuda") -> dict:
             "jax": {k: {v: {c: r[v][c] for c in cells} for v in results} for k, r in refs.items()},
             "pair_stages_s": pair_s,
             "pairs_per_sec": rates,
+            "pose_sync": probe, "pose_sync_jax_tpu": jax_pose_sync(),
             "bands": QUALITY_BANDS, "seconds": time.perf_counter() - t0}
+
+
+BLOCK_PER_CHUNK = {"halo_conv": 17, "block_gather": 4, "up_conv": 3, "skip_concat": 2, "cell_dense": 2}
+
+
+def _bench_scene_cloud0(cfg) -> dict:
+    """The bench's cloud 0 (its scene's first draws)."""
+    from roreg_tpu_torch.data.synthetic import synthetic_scene
+
+    scene = synthetic_scene(np.random.default_rng(0), num_clouds=1, points_per_cloud=20000,
+                            num_keypoints=cfg.num_keypoints, overlap=0.75, max_angle_deg=40.0)
+    return {"points0": scene.clouds[0], "keys0": scene.keypoints[0]}
+
+
+def phase_bench_kernels(seed: int, device: str = "cuda") -> dict:
+    """Phase 8a: phase 3b's check at the bench's block capacities and at its
+    fallback capacities (each alone, no rebuild), on the bench's cloud 0."""
+    from roreg_tpu_torch.bench import bench_config
+
+    cfg = bench_config()
+    cloud0 = _bench_scene_cloud0(cfg)
+    out = {}
+    for name, caps in (("bench", cfg.block_caps), ("fallback", cfg.block_caps_fallback)):
+        c = dataclasses.replace(cfg, block_caps=caps, block_caps_fallback=None)
+        totals, rows = phase_block_kernels(c, cloud0, seed, device,
+                                           tag=f"phase 8a block kernels at the {name} block capacities {caps}")
+        out[name] = {"block_caps": list(caps), "totals": totals, "rows": rows}
+    return out
+
+
+class _BuildFault(RuntimeError):
+    """The fault phase 8b injects into the bench's builder thread."""
+
+
+def phase_bench(device: str = "cuda") -> dict:
+    """Phase 8b: the bench at its full configuration, then with a failing
+    host build on its builder thread."""
+    import threading
+
+    import roreg_tpu_torch.bench as bench
+    from roreg_tpu_torch.pipeline.extractor import effective_chunk
+
+    cfg = bench.bench_config()
+    kernels = _kernels()
+    for k in kernels.values():
+        k.launches = 0
+    result, transforms = bench.run_bench(cfg, device=device)
+    launches = {name: k.launches for name, k in kernels.items()}
+    print(json.dumps(result), flush=True)
+    d = result["detail"]
+    for phase, T in transforms.items():
+        if tuple(T.shape) != (d["n_pairs"], 4, 4) or d["n_pairs"] != 28 or not bool(torch.isfinite(T).all()):
+            raise AssertionError(f"bench {phase}: transforms {tuple(T.shape)}, finite {bool(torch.isfinite(T).all())}")
+    chunks = cfg.group_size // effective_chunk(cfg.group_size, cfg.group_chunk)
+    expected = {name: BLOCK_PER_CHUNK.get(name, 0) * chunks * d["describes"] for name in kernels}
+    if launches != expected:
+        raise AssertionError(f"bench launches {launches}, expected {expected} "
+                             f"({chunks} chunks x {d['describes']} describes)")
+    if d["dropped_blocks"]:
+        raise AssertionError(f"bench dropped {d['dropped_blocks']} blocks after fallback")
+    per_cloud = {n: c // d["describes"] for n, c in launches.items()}
+    progress(f"phase 8b bench: {result['value']:.3f} pairs/s end to end (describe {d['describe_s']:.2f} s, "
+             f"pair stages {d['pair_stage_s']:.2f} s), device only {d['device_only']['pairs_per_sec']:.3f} "
+             f"pairs/s; launches a cloud {per_cloud}; fallback clouds {d['fallback_clouds']}, 0 dropped blocks")
+
+    real = bench.build_cloud_payloads
+    callers: list[str] = []
+
+    def failing(*a, **k):  # the untimed builds pass; the builder thread's first build raises
+        callers.append(threading.current_thread().name)
+        if callers[-1] == "bench-builder":
+            raise _BuildFault("injected host build fault")
+        return real(*a, **k)
+
+    caught: list[BaseException] = []
+
+    def run() -> None:
+        try:
+            bench.run_bench(cfg, n_clouds=2, device=device)
+        except BaseException as e:
+            caught.append(e)
+
+    bench.build_cloud_payloads = failing
+    try:
+        t0 = time.perf_counter()
+        th = threading.Thread(target=run, name="bench-fault", daemon=True)
+        th.start()
+        th.join(60.0)
+        fault_s = time.perf_counter() - t0
+    finally:
+        bench.build_cloud_payloads = real
+    if (th.is_alive() or len(caught) != 1 or not isinstance(caught[0], _BuildFault)
+            or callers != ["bench-fault"] * 2 + ["bench-builder"]):
+        raise AssertionError(f"a failing host build did not end the bench within 60 s: alive {th.is_alive()}, "
+                             f"raised {caught!r}, builds on {callers}")
+    progress(f"phase 8b bench: a failing host build ended the bench with it after {fault_s:.1f} s")
+    return {"result": result, "launches": launches, "expected_launches": expected, "fault_s": fault_s}
+
+
+def phase_cli(device: str = "cuda") -> dict:
+    """Phase 9: the three CLIs through ``main(argv)`` in a temporary
+    directory, their own output sent to stderr."""
+    import contextlib
+    import tempfile
+
+    from roreg_tpu_torch.cli import demo, test as cli_test, testset
+    from roreg_tpu_torch.pipeline.extractor import effective_chunk
+
+    kernels = _kernels()
+    out: dict = {}
+    cfg = cli_test.PipelineConfig()  # the CLIs' describe: the default block engine
+    halo_a_cloud = BLOCK_PER_CHUNK["halo_conv"] * (cfg.group_size // effective_chunk(cfg.group_size, cfg.group_chunk))
+
+    def call(name: str, fn, argv: list[str]):
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            res = fn(argv + ["--random_init", "--device", device])
+        launches = {n: k.launches for n, k in kernels.items() if k.launches}
+        out[name] = {"result": res, "seconds": time.perf_counter() - t0, "launches": launches}
+        progress(f"phase 9 {name}: {time.perf_counter() - t0:.1f} s, launches {launches}")
+        return res, launches
+
+    with tempfile.TemporaryDirectory(prefix="roreg_cli_") as tmp:
+        data, dest = os.path.join(tmp, "data"), os.path.join(tmp, "out")
+        res, launches = call("demo", demo.main, ["--data_root", data])
+        if not (np.isfinite(res["rre_deg"]) and np.isfinite(res["rte_m"])):
+            raise AssertionError(f"cli.demo: {res}")
+        if launches.get("halo_conv") != 2 * halo_a_cloud:
+            raise AssertionError(f"cli.demo launches {launches}")
+        n, _ = call("testset", testset.main, ["--dataset", "demo", "--origin_data_dir", data, "--outdir", dest])
+        cached = sorted(os.listdir(os.path.join(dest, "desc_cache", "demo_kitchen")))
+        if n != 2 or cached != ["0.npz", "1.npz"]:
+            raise AssertionError(f"cli.testset described {n} clouds, cache {cached}")
+        summary, launches = call("test demo", cli_test.main,
+                                 ["--testset", "demo", "--origin_data_dir", data, "--output_dir", dest])
+        if launches:
+            raise AssertionError(f"cli.test --testset demo launched {launches}: the cache was not used")
+        for f in ("demo_kitchen/pre.log", "results.log"):
+            if not os.path.exists(os.path.join(dest, f)):
+                raise AssertionError(f"cli.test did not write {f}")
+        if summary["pairs"] != 1 or summary["rr_predator"] is not None:
+            raise AssertionError(f"cli.test --testset demo: {summary}")
+        summary, launches = call("test synthetic", cli_test.main,
+                                 ["--testset", "synthetic", "--origin_data_dir", data, "--output_dir", dest])
+        if summary["pairs"] != 6 or not isinstance(summary["rr_predator"], float):
+            raise AssertionError(f"cli.test --testset synthetic: {summary}")
+        if launches.get("halo_conv") != 4 * halo_a_cloud:
+            raise AssertionError(f"cli.test --testset synthetic launches {launches}")
+    progress(f"phase 9 CLIs: demo RRE {out['demo']['result']['rre_deg']:.2f} deg; testset cached 2 clouds; "
+             f"test demo from the cache, rr_predator None; test synthetic {summary['pairs']} pairs, "
+             f"RR {summary['rr_pointdsc']:.3f}, Predator RR {summary['rr_predator']:.3f}")
+    return out
 
 
 def main() -> int:
@@ -765,12 +966,15 @@ def main() -> int:
         report["block_kernel_shapes"] = block_rows
         report["reference"] = {c.engine: phase_reference(c, args.seed) for c in (gather_cfg, block_cfg)}
         report["reference"]["rm"] = phase_rm_reference(default_cfg, args.seed)
-        block_per_chunk = {"halo_conv": 17, "block_gather": 4, "up_conv": 3, "skip_concat": 2, "cell_dense": 2}
+        block_per_chunk = BLOCK_PER_CHUNK
         report["slice"] = phase_slice(gather_cfg, pair, args.seed, {"gather_conv": 20}, "phase 4 gather slice")
         report["block_slice"] = phase_slice(block_cfg, pair, args.seed, block_per_chunk, "phase 5 block slice")
         report["default_slice"] = phase_slice(
             default_cfg, pair, args.seed, block_per_chunk, "phase 6 default chain (block engine + RM)")
         report["quality"] = phase_quality(args.seed, block_per_chunk)
+        report["bench_kernels"] = phase_bench_kernels(args.seed)
+        report["bench"] = phase_bench()
+        report["cli"] = phase_cli()
         report["total_s"] = time.perf_counter() - T0
         entries = [{
             "name": "gather_conv",
@@ -807,6 +1011,10 @@ def main() -> int:
                 "max_abs_err": t["err"], "ms": t["ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
                 "library": "; ".join(libraries), "unit": unit + " (block engine)",
+                # this slice's path: the bench's launches, and one chunk's forward at its block capacities
+                "bench_launches": report["bench"]["launches"][name],
+                "bench_caps_ms": report["bench_kernels"]["bench"]["totals"][name]["ms"],
+                "bench_caps_bound_ms": report["bench_kernels"]["bench"]["totals"][name]["bound_ms"],
             })
         kernels = {"kernels": entries}
         report.update(kernels)

@@ -14,7 +14,13 @@ with no argument runs. ``eval.evaluator.Evaluator`` describes each cloud of
 a scene once and registers its pairs from the stored descriptors, and
 ``python -m roreg_tpu_torch.quality`` runs the JAX package's held-out
 quality benchmark with the committed trained weights
-(``checkpoints/quality_full/``). On the GPU every gather conv of the gather engine runs the
+(``checkpoints/quality_full/``). ``python -m roreg_tpu_torch.bench`` prints the
+registered pairs per second of the default chain, with the host builds
+overlapped with the describes. The 3DMatch layout (``data/dataset.py``,
+``data/ply.py``), the Predator protocol's RR (``eval/benchmark.py``), pose
+sync (``eval/posegraph.py``) and the CLIs (``python -m
+roreg_tpu_torch.cli.demo``, ``cli.testset``, ``cli.test``) are ported. On
+the GPU every gather conv of the gather engine runs the
 hand-written CUDA kernel of ``csrc/gather_conv.cu``; on the block engine
 every same-level and stride-2 conv runs ``csrc/halo_conv.cu``, every
 block-table gather (conv1's occupancy, the up convs' coarse regions)

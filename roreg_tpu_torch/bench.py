@@ -1,0 +1,259 @@
+"""Benchmark: registered pairs per second on one card, full pipeline.
+
+    python -m roreg_tpu_torch.bench [--device cuda] [--out PATH]
+
+The port of the JAX package's ``bench.py``. A 3DMatch-scale scene of 8
+synthetic clouds (20000 points each, 5000 keypoints, 2.5 cm voxels, overlap
+0.75, rotations up to 40 degrees, from ``default_rng(0)``) runs the whole
+default chain: the host C++ block builds, the 60-rotation block-engine
+describe, GF, RD and NMS, the RM matcher, ET and yohoo RANSAC. Each cloud
+is described once and its 28 pairs reuse the descriptors, as the
+reference's evaluation does (one describe a cloud, a pair stage a pair).
+
+The backbone carries seeded random weights (``init_variables(cfg, 0)``):
+the committed backbone was trained at conv1 kernel 5 and does not fit this
+configuration. GF, RD, RM and ET are the trained heads of
+``checkpoints/quality_full/`` (their shapes depend only on the group); a
+head that fails to load fails the bench. Run time does not depend on the
+weights' values.
+
+Two timed phases, both reported:
+
+1. device only: the host builds of all clouds run before the clock; cloud
+   0's describe and one pair stage are the untimed warm-up; the clock
+   covers 7 describes and all 28 pair stages, one pair at a time, and
+   ends with a host readback of the transforms.
+2. end to end (the headline): the clock starts before any host work. A
+   builder thread runs the host builds into a queue of 2 payloads while
+   the main thread describes each cloud as its payload lands; then all 8
+   describes' pair stages. A build that raises is passed to the main
+   thread, which raises it.
+
+Baseline: the reference registers about 1623 3DMatch pairs in 37.1 min on
+an RTX 2080Ti (RoReg Appendix Table 1), about 0.73 pairs/s.
+
+Prints one JSON line: ``{"metric": "registered_pairs_per_sec_per_chip",
+"value", "unit", "vs_baseline", "detail"}``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import queue
+import sys
+import threading
+import time
+
+import numpy as np
+import torch
+
+from roreg_tpu_torch.data.synthetic import synthetic_scene
+from roreg_tpu_torch.device import device_info, resolve_device
+from roreg_tpu_torch.pipeline.config import PipelineConfig
+from roreg_tpu_torch.pipeline.extractor import PinnedArena, build_cloud_payloads, dispatch_cloud_payloads
+from roreg_tpu_torch.pipeline.registration import RegistrationPipeline
+from roreg_tpu_torch.weights import QUALITY_FULL_DIR, init_variables, load_components
+
+__all__ = ["BASELINE_PAIRS_PER_S", "bench_config", "run_bench", "main"]
+
+BASELINE_PAIRS_PER_S = 0.73
+HEADS = ("gf", "rd", "rm", "et")
+
+
+def bench_config() -> PipelineConfig:
+    """``bench.py``'s configuration."""
+    return PipelineConfig(
+        voxel_size=0.025,
+        group_size=60,
+        capacities=(32768, 16384, 8192, 4096),
+        # right-sized to the p100 of this workload's cloud x rotation
+        # builds plus about 5 %; a cloud that overflows is rebuilt at the
+        # fallback capacities instead of dropping blocks
+        block_caps=(2880, 832, 240, 80),
+        block_caps_fallback=(3072, 1024, 512, 256),
+        conv1_kernel_size=7,
+        group_chunk=10,
+        num_keypoints=5000,
+        keynum=1000,
+        max_iter=1000,
+        eval_pair_batch=7,
+    )
+
+
+def _log(t_start: float):
+    def log(msg: str) -> None:
+        print(f"[bench +{time.perf_counter() - t_start:.1f}s] {msg}", file=sys.stderr, flush=True)
+
+    return log
+
+
+def run_bench(
+    cfg: PipelineConfig, n_clouds: int = 8, points_per_cloud: int = 20000, device=None,
+) -> tuple[dict, dict[str, torch.Tensor]]:
+    """Both phases on ``n_clouds`` clouds of ``points_per_cloud`` points
+    under ``cfg``, on ``device`` (CUDA unless ``"cpu"``). Returns the result
+    line's dict and each phase's (n_pairs, 4, 4) transforms on the host."""
+    dev = resolve_device(device)
+    cuda = dev.type == "cuda"
+    t_start = time.perf_counter()
+    log = _log(t_start)
+    scene = synthetic_scene(
+        np.random.default_rng(0), num_clouds=n_clouds, points_per_cloud=points_per_cloud,
+        num_keypoints=cfg.num_keypoints, overlap=0.75, max_angle_deg=40.0,
+    )
+    variables = init_variables(cfg, 0)
+    loaded = load_components(QUALITY_FULL_DIR, cfg, variables, HEADS)
+    if loaded != list(HEADS):
+        raise FileNotFoundError(f"trained heads {sorted(set(HEADS) - set(loaded))} missing in {QUALITY_FULL_DIR}")
+    pipe = RegistrationPipeline(cfg, variables, dev)
+    backbone = pipe.nets["backbone"]
+    clouds = list(zip(scene.clouds, scene.keypoints))
+    pairs = [(i, j) for i in range(n_clouds) for j in range(i + 1, n_clouds)]
+    kps = [pipe._tensor(kp) for _, kp in clouds]
+    builds: list[tuple[int, tuple, int]] = []  # (cloud, caps, dropped) of every host build
+
+    def sync() -> None:
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def build(i: int):
+        """Cloud i's host payload, in pinned memory on a card; the arena
+        that owns the memory travels with it."""
+        arena = PinnedArena() if cuda else None
+        payload, key_rows, caps, dropped = build_cloud_payloads(*clouds[i], cfg, empty=arena)
+        builds.append((i, caps, dropped))
+        return payload, key_rows, caps, arena
+
+    @torch.inference_mode()
+    def describe(built, i: int):
+        payload, key_rows, caps, _ = built
+        bb = dispatch_cloud_payloads(backbone, payload, key_rows, caps, cfg, dev)
+        return pipe.describe_tail(bb, kps[i])
+
+    @torch.inference_mode()
+    def run_pairs(descs, gen) -> torch.Tensor:
+        Ts = [pipe.pair_stage(descs[i][0], descs[j][0], descs[i][1], descs[j][1], descs[i][2], descs[j][2],
+                              generator=gen)["transform"] for i, j in pairs]
+        return torch.stack(Ts).cpu()  # the host readback ends the phase
+
+    # ---- untimed: host builds of all clouds, warm-up on cloud 0 ----
+    payloads = [build(i) for i in range(n_clouds)]
+    log(f"host payloads of {n_clouds} clouds built (untimed)")
+    t_warm = time.perf_counter()
+    d0 = describe(payloads[0], 0)
+    with torch.inference_mode():
+        pipe.pair_stage(d0[0], d0[0], d0[1], d0[1], d0[2], d0[2],
+                        generator=torch.Generator(device=dev).manual_seed(9))
+    sync()
+    warmup_s = time.perf_counter() - t_warm
+    log(f"warm-up done in {warmup_s:.1f} s")
+
+    # ---- timed, device only: describes of clouds 1.. and all pair stages ----
+    t0 = time.perf_counter()
+    descs = [d0] + [describe(payloads[i], i) for i in range(1, n_clouds)]
+    sync()
+    t_desc = time.perf_counter() - t0
+    Ts = run_pairs(descs, torch.Generator(device=dev).manual_seed(100))
+    elapsed = time.perf_counter() - t0
+    del payloads, descs
+    log(f"device only: describe {t_desc:.2f} s, pair stages {elapsed - t_desc:.2f} s")
+
+    # ---- timed, end to end: host builds overlapped with the describes ----
+    payload_q: queue.Queue = queue.Queue(maxsize=2)  # bounds the payloads held in memory
+    stop = threading.Event()
+
+    def builder() -> None:
+        for i in range(n_clouds):
+            if stop.is_set():
+                return
+            try:
+                item = build(i)
+            except BaseException as e:  # handed to the main thread, which raises it
+                item = e
+            payload_q.put((i, item))
+            if isinstance(item, BaseException):
+                return
+
+    n_builds = len(builds)
+    t0e = time.perf_counter()
+    th = threading.Thread(target=builder, name="bench-builder", daemon=True)
+    th.start()
+    try:
+        descs_e = [None] * n_clouds
+        for _ in range(n_clouds):
+            i, item = payload_q.get()
+            if isinstance(item, BaseException):
+                raise item
+            descs_e[i] = describe(item, i)
+            del item
+        sync()
+        t_desc_e = time.perf_counter() - t0e
+        Ts_e = run_pairs(descs_e, torch.Generator(device=dev).manual_seed(200))
+        elapsed_e = time.perf_counter() - t0e
+    finally:
+        stop.set()
+        while th.is_alive():  # unblock a builder waiting on a full queue
+            try:
+                payload_q.get(timeout=0.1)
+            except queue.Empty:
+                pass
+        th.join()
+    log(f"end to end: describe (host builds overlapped) {t_desc_e:.2f} s, "
+        f"pair stages {elapsed_e - t_desc_e:.2f} s")
+
+    e2e_builds = builds[n_builds:]
+    pairs_per_s = len(pairs) / elapsed_e
+    result = {
+        "metric": "registered_pairs_per_sec_per_chip",
+        "value": pairs_per_s,
+        "unit": "pairs/s",
+        "vs_baseline": pairs_per_s / BASELINE_PAIRS_PER_S,
+        "detail": {
+            "n_clouds": n_clouds,
+            "n_pairs": len(pairs),
+            "timing": "end_to_end (host payload builds on a builder thread, all describes and all pair "
+                      "stages inside the timed window)",
+            "elapsed_s": elapsed_e,
+            "describe_s": t_desc_e,
+            "pair_stage_s": elapsed_e - t_desc_e,
+            "device_only": {
+                "pairs_per_sec": len(pairs) / elapsed,
+                "elapsed_s": elapsed,
+                "describe_s": t_desc,
+                "pair_stage_s": elapsed - t_desc,
+                "timing": "host builds untimed, cloud-0 describe untimed (warm-up), "
+                          f"{n_clouds - 1} describes + {len(pairs)} pairs timed",
+            },
+            "warmup_s": warmup_s,
+            "keynum": cfg.keynum,
+            "max_iter": cfg.max_iter,
+            "trained_heads": loaded,
+            "block_caps": list(cfg.block_caps),
+            "fallback_clouds": sorted(i for i, caps, _ in e2e_builds if tuple(caps) != tuple(cfg.block_caps)),
+            "dropped_blocks": int(sum(d for _, _, d in builds)),
+            "describes": 2 * n_clouds,
+            "device": device_info(dev),
+        },
+    }
+    return result, {"device_only": Ts, "end_to_end": Ts_e}
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--device", default=None, help="cuda (default) or cpu")
+    ap.add_argument("--out", default=None, help="also write the result line to this file")
+    args = ap.parse_args(argv)
+    result, _ = run_bench(bench_config(), device=args.device)
+    line = json.dumps(result)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+    print(line, flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

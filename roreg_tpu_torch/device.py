@@ -2,9 +2,11 @@
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "device_info"]
 
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
@@ -19,3 +21,15 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def device_info(dev: torch.device) -> dict:
+    """What a measurement names its device by: ``{"name": "cpu"}``, or the
+    card's name and ``nvidia-smi``'s name and power limit line."""
+    if dev.type != "cuda":
+        return {"name": "cpu"}
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    return {"name": torch.cuda.get_device_name(dev), "nvidia_smi": smi}

@@ -1,1 +1,1 @@
-"""Evaluation: quality metrics and the scene evaluator."""
+"""Evaluation: quality metrics, the Predator protocol, pose sync and the scene evaluator."""

@@ -1,86 +1,129 @@
 """Scene evaluator: describe each cloud once, register every pair of a
-scene from the stored descriptors, and average FMR / IR / RR / RRE / RTE.
+scene from the stored descriptors, average FMR / IR / RR / RRE / RTE, and
+score the Predator protocol's RR.
 
-Counterpart of ``Evaluator`` in ``roreg_tpu/eval/evaluator.py``
-(``describe_cloud`` with its descriptor store, ``process_scene``, ``run``)
-for in-memory scenes (:class:`roreg_tpu_torch.data.synthetic.SyntheticScene`).
-Pairs run one at a time through
+Counterpart of ``Evaluator`` in ``roreg_tpu/eval/evaluator.py``. A scene is
+a ``data.dataset.ThreeDMatchDataset`` (files in the 3DMatch layout) or a
+``data.synthetic.SyntheticScene`` (in memory); both are read through one
+interface. Descriptors can be kept in a shared store of device tensors
+(``desc_store``) and in an npz cache on disk (``cache_dir``), in the JAX
+package's layout, so that either package reads the other's files. Pairs
+run one at a time through
 ``RegistrationPipeline.register_pair_from_descriptors``. The averages are
 the reference's: FMR, IR and RR are means of per-scene means; RRE and RTE
 are per-scene means over the registered pairs (180 and 1.0 for a scene
-with none), averaged over scenes. Pose sync, ``pre.log`` and the Predator
-RR are not ported (``rr_predator`` is None).
+with none), averaged over scenes. With ``cfg.pose_sync`` a scene of 3 pairs
+or more has its transforms refined by ``eval.posegraph.sync_scene``.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from roreg_tpu_torch.data.dataset import ThreeDMatchDataset
 from roreg_tpu_torch.data.synthetic import SyntheticScene
+from roreg_tpu_torch.eval.benchmark import benchmark_arrays, write_trajectory
 from roreg_tpu_torch.eval.metrics import fmr_ir, registration_errors
+from roreg_tpu_torch.eval.posegraph import sync_scene
 from roreg_tpu_torch.pipeline.registration import RegistrationPipeline, gf_apply
+from roreg_tpu_torch.utils.profiling import StageTimer
 
-__all__ = ["Evaluator"]
+__all__ = ["Evaluator", "cache_path"]
+
+SCENE_TYPES = (ThreeDMatchDataset, SyntheticScene)
+
+
+def cache_path(cache_dir: str, scene_name: str, pc_id) -> str:
+    """The npz descriptor cache file of one cloud:
+    ``<cache_dir>/<scene name with / as _>/<id>.npz`` (keys ``bb``, ``gf``,
+    ``det``)."""
+    return os.path.join(cache_dir, scene_name.replace("/", "_"), f"{pc_id}.npz")
 
 
 @dataclass
 class Evaluator:
-    """``desc_store``: an optional dict ``{(scene name, cloud id): (bb, gf,
-    det)}`` of device tensors, shared between evaluators whose pipelines
-    share the backbone, GF and RD weights (chain variants, keynums), so
-    that each cloud is described once. ``dropped_blocks`` holds the block
-    engine's dropped block count of each cloud this evaluator described."""
+    """``cache_dir``: an optional npz descriptor cache, read before a cloud
+    is described and written after. ``results_log``: a file that
+    :meth:`run` appends its summary block to. ``desc_store``: an optional
+    dict ``{(scene name, cloud id): (bb, gf, det)}`` of device tensors,
+    shared between evaluators whose pipelines share the backbone, GF and
+    RD weights (chain variants, keynums), so that each cloud is described
+    once. ``dropped_blocks`` holds the block engine's dropped block count of
+    each cloud this evaluator described."""
 
     pipeline: RegistrationPipeline
+    cache_dir: str | None = None
+    results_log: str | None = None
     desc_store: dict | None = None
     dropped_blocks: dict = field(default_factory=dict)
 
+    def __post_init__(self):
+        self.timer = StageTimer()
+
     @torch.inference_mode()
-    def describe_cloud(self, scene: SyntheticScene, pc_id: int):
+    def describe_cloud(self, ds, pc_id):
         """-> (bb (K, G, 32), gf (K, G, 32), det (K,)) of one cloud."""
-        key = (scene.name, str(pc_id))
-        if self.desc_store is not None and key in self.desc_store:
-            return self.desc_store[key]
-        pipe = self.pipeline
-        dropped: list[int] = []
-        bb = pipe.extract(scene.clouds[pc_id], None, scene.keypoints[pc_id], dropped=dropped)
-        gf = gf_apply(pipe.nets["gf"], bb, pipe.cfg)
-        det = pipe.detect(gf, torch.ones(gf.shape[0], dtype=torch.bool, device=pipe.device))
-        if dropped:
-            self.dropped_blocks[key] = dropped[0]
         if self.desc_store is not None:
-            self.desc_store[key] = (bb, gf, det)
+            key = (ds.name, str(pc_id))
+            if key not in self.desc_store:
+                self.desc_store[key] = self._describe_uncached(ds, pc_id)
+            return self.desc_store[key]
+        return self._describe_uncached(ds, pc_id)
+
+    def _describe_uncached(self, ds, pc_id):
+        pipe = self.pipeline
+        cache_fn = cache_path(self.cache_dir, ds.name, pc_id) if self.cache_dir else None
+        if cache_fn and os.path.exists(cache_fn):
+            with np.load(cache_fn) as z:
+                return tuple(pipe._tensor(z[k]) for k in ("bb", "gf", "det"))
+        kp = ds.get_kps(pc_id).astype(np.float32)
+        dropped: list[int] = []
+        with self.timer.stage("describe"):
+            bb = pipe.extract(ds.get_pc(pc_id).astype(np.float32), None, kp, dropped=dropped)
+            gf = gf_apply(pipe.nets["gf"], bb, pipe.cfg)
+        with self.timer.stage("detect"):
+            det = pipe.detect(gf, torch.ones(gf.shape[0], dtype=torch.bool, device=pipe.device))
+        self.timer.block("describe_wait", (bb, gf, det))
+        if dropped:
+            self.dropped_blocks[(ds.name, str(pc_id))] = dropped[0]
+        if cache_fn:
+            os.makedirs(os.path.dirname(cache_fn), exist_ok=True)
+            np.savez(cache_fn, **{k: v.float().cpu().numpy() for k, v in (("bb", bb), ("gf", gf), ("det", det))})
         return bb, gf, det
 
     @torch.inference_mode()
-    def process_scene(self, scene: SyntheticScene, seed: int = 0) -> dict:
-        """Register every pair of ``scene`` (pairs (i, j), i < j, in order),
-        each from the stored descriptors of its two clouds, with draws from a
-        generator on the pipeline's device seeded with ``seed``. Returns
-        per-pair lists: ``pairs``, ``transforms``, ``overlaps``, ``fmr``,
-        ``ir``, ``rr``, and ``rre``/``rte`` of the registered pairs."""
+    def process_scene(self, ds, seed: int = 0) -> dict:
+        """Register every pair of ``ds`` in the order of its gt, each from the
+        stored descriptors of its two clouds, with draws from a generator on
+        the pipeline's device seeded with ``seed``. Returns per-pair lists:
+        ``pairs`` (int ids), ``transforms`` (float32), ``overlaps``, ``fmr``,
+        ``ir``, ``rr``, and ``rre``/``rte`` of the registered pairs; with
+        pose sync also ``transforms_raw``."""
         pipe = self.pipeline
         cfg = pipe.cfg
         gen = torch.Generator(device=pipe.device).manual_seed(seed)
-        desc = [self.describe_cloud(scene, k) for k in range(len(scene.clouds))]
-        kps = [pipe._tensor(kp) for kp in scene.keypoints]
+        desc = {pc_id: self.describe_cloud(ds, pc_id) for pc_id in ds.pc_ids}
+        kps = {pc_id: pipe._tensor(ds.get_kps(pc_id).astype(np.float32)) for pc_id in ds.pc_ids}
         results = {k: [] for k in ("pairs", "transforms", "overlaps", "fmr", "ir", "rr", "rre", "rte")}
-        for (i, j), T_gt in scene.gt.items():
-            (bb0, gf0, det0), (bb1, gf1, det1) = desc[i], desc[j]
-            out = pipe.register_pair_from_descriptors(
-                bb0, gf0, det0, kps[i], bb1, gf1, det1, kps[j], generator=gen
-            )
-            km0 = kps[i][out["sample0"][out["m0"]]].cpu().numpy()
-            km1 = kps[j][out["sample1"][out["m1"]]].cpu().numpy()
-            T = out["transform"].double().cpu().numpy()
+        for id0, id1 in ds.pair_ids:
+            (bb0, gf0, det0), (bb1, gf1, det1) = desc[id0], desc[id1]
+            with self.timer.stage("match_estimate"):
+                out = pipe.register_pair_from_descriptors(
+                    bb0, gf0, det0, kps[id0], bb1, gf1, det1, kps[id1], generator=gen
+                )
+                T = out["transform"].cpu().numpy()
+            km0 = kps[id0][out["sample0"][out["m0"]]].cpu().numpy()
+            km1 = kps[id1][out["sample1"][out["m1"]]].cpu().numpy()
+            T_gt = ds.get_transform(id0, id1)
             fmr, ir = fmr_ir(km0, km1, out["est_valid"].cpu().numpy(), T_gt, cfg.tau_1, cfg.tau_2)
             rre, rte = registration_errors(T, T_gt)
             ok = float(rre < cfg.rr_rot_deg and rte < cfg.rr_trans)
-            results["pairs"].append((i, j))
+            results["pairs"].append((int(id0), int(id1)))
             results["transforms"].append(T)
             results["overlaps"].append(float(out["overlap"]))
             results["fmr"].append(fmr)
@@ -89,34 +132,84 @@ class Evaluator:
             if ok:
                 results["rre"].append(rre)
                 results["rte"].append(rte)
+        if cfg.pose_sync and len(results["pairs"]) >= 3:
+            self._apply_pose_sync(ds, results)
         return results
 
-    def run(self, datasets: dict, seed: int = 0) -> dict:
-        """Evaluate a group of scenes (``{name: SyntheticScene}``; other
+    def _apply_pose_sync(self, ds, results) -> None:
+        """Replace the pairwise transforms with the cycle-consistent
+        refinement (``eval/posegraph.py``) and recompute RR/RRE/RTE on the
+        refined set."""
+        cfg = self.pipeline.cfg
+        refined = sync_scene(results["pairs"], results["transforms"], results["overlaps"],
+                             device=self.pipeline.device)
+        results["transforms_raw"] = results["transforms"]
+        results["transforms"] = refined
+        results["rr"], results["rre"], results["rte"] = [], [], []
+        for (id0, id1), T in zip(results["pairs"], refined):
+            rre, rte = registration_errors(T, ds.get_transform(id0, id1))
+            ok = float(rre < cfg.rr_rot_deg and rte < cfg.rr_trans)
+            results["rr"].append(ok)
+            if ok:
+                results["rre"].append(rre)
+                results["rte"].append(rte)
+
+    def run(self, datasets: dict, out_dir: str | None = None, seed: int = 0) -> dict:
+        """Evaluate a named group of scenes (``{name: scene}``; other
         entries, such as ``wholesetname``, are skipped) and return the
-        summary. ``pairs_per_sec`` counts the whole run, describes of
-        clouds not yet in the store included."""
+        summary. With ``out_dir``, each scene's transforms go to
+        ``<out_dir>/<scene name with / as _>/pre.log``. ``rr_predator`` is
+        the Predator protocol's RR over the scenes that have gt.info
+        matrices (non-consecutive pairs only, except for WHU-TLS; RMSE
+        threshold ``tau_3``), None where no scene counts. With
+        ``results_log`` the summary is appended there as a block.
+        ``pairs_per_sec`` counts the whole run, describes of clouds not yet
+        in the store or the cache included."""
+        cfg = self.pipeline.cfg
         fmrs, irs, rrs, rres, rtes = [], [], [], [], []
+        scene_results = {}
         t0 = time.perf_counter()
         n_pairs = 0
-        for scene in datasets.values():
-            if not isinstance(scene, SyntheticScene):
+        for name, ds in datasets.items():
+            if not isinstance(ds, SCENE_TYPES):
                 continue
-            res = self.process_scene(scene, seed)
+            res = self.process_scene(ds, seed)
             n_pairs += len(res["pairs"])
             fmrs.append(np.mean(res["fmr"]))
             irs.append(np.mean(res["ir"]))
             rrs.append(np.mean(res["rr"]))
             rres.append(np.mean(res["rre"]) if res["rre"] else 180.0)
             rtes.append(np.mean(res["rte"]) if res["rte"] else 1.0)
+            if out_dir is not None:
+                pre_dir = os.path.join(out_dir, ds.name.replace("/", "_"))
+                os.makedirs(pre_dir, exist_ok=True)
+                write_trajectory(res["pairs"], res["transforms"], os.path.join(pre_dir, "pre.log"),
+                                 len(ds.pc_ids))
+            gt = ds.predator_gt()
+            if gt is not None:
+                scene_results[name] = {**gt, "est_pairs": np.asarray(res["pairs"]),
+                                       "est_traj": np.stack(res["transforms"])}
         elapsed = time.perf_counter() - t0
-        return {
+        rr_predator, _ = benchmark_arrays(
+            scene_results, err2=cfg.tau_3, nonconsecutive=datasets.get("wholesetname") != "WHU-TLS")
+        summary = {
             "fmr": float(np.mean(fmrs)),
             "ir": float(np.mean(irs)),
             "rr_pointdsc": float(np.mean(rrs)),
             "rre": float(np.mean(rres)),
             "rte": float(np.mean(rtes)),
-            "rr_predator": None,
+            "rr_predator": rr_predator,
             "pairs": n_pairs,
             "pairs_per_sec": n_pairs / max(elapsed, 1e-9),
+            "stage_times": self.timer.summary(),
         }
+        if self.results_log:
+            name = datasets.get("wholesetname", "?")
+            msg = (
+                f"{name}-RD:{cfg.use_rd}-RM:{cfg.use_rm}-{cfg.estimator}-"
+                f"{cfg.keynum}keys-{cfg.max_iter}iters\n"
+                + "\n".join(f"{k}: {v}" for k, v in summary.items())
+            )
+            with open(self.results_log, "a") as f:
+                f.write(msg + "\n")
+        return summary

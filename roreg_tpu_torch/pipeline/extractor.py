@@ -50,6 +50,7 @@ from roreg_tpu_torch.sparse.resunet import ResUNet, flatten_batch, offset_table
 
 __all__ = [
     "effective_chunk",
+    "PinnedArena",
     "extract_group_features_hostmaps",
     "upload_chunk",
     "backbone_chunk",
@@ -70,7 +71,7 @@ def effective_chunk(g: int, requested: int) -> int:
     return c
 
 
-class _PinnedArena:
+class PinnedArena:
     """Allocates numpy views of page-locked host memory; holds the tensors
     that own it for as long as the arena lives."""
 
@@ -144,7 +145,7 @@ def extract_group_features_hostmaps(
     kps = np.ascontiguousarray(keypoints, np.float32)
 
     cuda = device.type == "cuda"
-    empty = _PinnedArena() if cuda else (lambda shape, dtype: np.empty(shape, dtype))
+    empty = PinnedArena() if cuda else (lambda shape, dtype: np.empty(shape, dtype))
     bufs = [
         alloc_pyramid_buffers(cfg.capacities, cfg.conv1_kernel_size, chunk, empty=empty)
         for _ in range(2)
@@ -315,7 +316,7 @@ def extract_group_features_blocks(
     """(N, 3) host cloud + (K, 3) host keypoints -> ((K, G, 32) backbone
     group features on ``device``, dropped blocks). With ``timings``, the
     seconds the host builds took are added to ``host_wait``."""
-    empty = _PinnedArena() if device.type == "cuda" else None
+    empty = PinnedArena() if device.type == "cuda" else None
     t0 = time.perf_counter()
     payload, key_rows, caps, dropped = build_cloud_payloads(points, keypoints, cfg, empty=empty)
     if timings is not None:

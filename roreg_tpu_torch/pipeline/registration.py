@@ -2,7 +2,8 @@
 estimate, on the compute device.
 
 Counterpart of ``roreg_tpu/pipeline/registration.py`` (``gf_apply``,
-``rd_apply``, ``rm_apply``, ``et_apply`` and ``RegistrationPipeline``):
+``rd_apply``, ``rm_apply``, ``et_apply``, ``describe_tail`` and
+``RegistrationPipeline``):
 the RM matcher with its top-match selection (``use_rm=True``, the
 default) or mutual nearest neighbours of group-mean descriptors
 (``use_rm=False``), then the ET residual quaternions and yohoo RANSAC, or
@@ -52,7 +53,9 @@ from roreg_tpu_torch.pipeline.matcher import (
 )
 from roreg_tpu_torch.weights import build_modules, load_variables
 
-__all__ = ["RegistrationPipeline", "gf_apply", "rd_apply", "rm_apply", "et_apply"]
+__all__ = [
+    "RegistrationPipeline", "gf_apply", "rd_apply", "rm_apply", "et_apply", "sample_keypoints", "describe_tail",
+]
 
 
 def _draw_device(generator: torch.Generator | None) -> torch.device:
@@ -108,6 +111,37 @@ def et_apply(
         et(bb1_m[a:b], bb0_m[a:b], gf1_m[a:b], gf0_m[a:b], idx[a:b])
         for a, b in _chunks(m, cfg.bs_et)
     ])
+
+
+def sample_keypoints(
+    keys: torch.Tensor, det_scores, kp_mask: torch.Tensor, cfg: PipelineConfig,
+    noise=None, generator: torch.Generator | None = None,
+) -> torch.Tensor:
+    """``keynum`` keypoint indices: NMS on the detector scores, or with
+    ``use_rd=False`` the top ``noise`` priorities (uniform draws from
+    ``generator`` when not given) among the masked-in keypoints."""
+    if cfg.use_rd:
+        return nms_sample(keys, det_scores, kp_mask, cfg.keynum, cfg.nms_k)
+    if noise is None:
+        noise = torch.rand(keys.shape[0], generator=generator, device=_draw_device(generator))
+    noise = torch.as_tensor(noise, dtype=torch.float32).to(keys.device)
+    prio = torch.where(kp_mask, noise, torch.full_like(noise, -1.0))
+    return top_k_indices(prio, cfg.keynum)
+
+
+def describe_tail(
+    nets: dict, bb: torch.Tensor, keypoints: torch.Tensor, cfg: PipelineConfig,
+    noise=None, generator: torch.Generator | None = None,
+):
+    """Backbone group feats (K, G, 32) of one cloud -> the sampled triple
+    ``(bb_s, gf_s, kp_s)`` (``keynum`` rows each): GF, then RD and NMS (or,
+    with ``use_rd=False``, the top ``keynum`` of ``noise``), then the three
+    gathers."""
+    gf = gf_apply(nets["gf"], bb, cfg)
+    ones = torch.ones(keypoints.shape[0], dtype=torch.bool, device=keypoints.device)
+    det = rd_apply(nets["rd"], gf, ones) if cfg.use_rd else None
+    s = sample_keypoints(keypoints, det, ones, cfg, noise, generator)
+    return bb[s], gf[s], keypoints[s]
 
 
 class RegistrationPipeline:
@@ -174,16 +208,14 @@ class RegistrationPipeline:
 
     @torch.inference_mode()
     def sample_keypoints(self, keys, det_scores, kp_mask, noise=None, generator=None):
-        """``keynum`` keypoint indices: NMS on the detector scores, or with
-        ``use_rd=False`` the top ``noise`` priorities (uniform draws)."""
-        cfg = self.cfg
-        if cfg.use_rd:
-            return nms_sample(keys, det_scores, kp_mask, cfg.keynum, cfg.nms_k)
-        if noise is None:
-            noise = torch.rand(keys.shape[0], generator=generator, device=_draw_device(generator))
-        noise = self._tensor(noise)
-        prio = torch.where(kp_mask, noise, torch.full_like(noise, -1.0))
-        return top_k_indices(prio, cfg.keynum)
+        """:func:`sample_keypoints` under this pipeline's config."""
+        return sample_keypoints(keys, det_scores, kp_mask, self.cfg, noise, generator)
+
+    @torch.inference_mode()
+    def describe_tail(self, bb, keypoints, noise=None, generator=None):
+        """:func:`describe_tail` with this pipeline's networks; ``keypoints``
+        may be a host array."""
+        return describe_tail(self.nets, bb, self._tensor(keypoints), self.cfg, noise, generator)
 
     @torch.inference_mode()
     def pair_stage(

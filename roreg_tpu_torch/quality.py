@@ -3,7 +3,7 @@
     python -m roreg_tpu_torch.quality [--keynums 1024,500,250] [--variants all] [--out PATH]
 
 The port of the JAX package's protocol benchmark
-(``scripts/quality_benchmark.py --full``, without its pose-sync probe): the
+(``scripts/quality_benchmark.py --full``): the
 weights of ``checkpoints/quality_full/`` under ``quality_full_config()``,
 on 4 held-out synthetic scenes of 7 clouds at overlap 0.75
 (``3dmatch_analog``) and 4 at overlap 0.45 (``3dlomatch_analog``), all
@@ -13,11 +13,15 @@ split. Four chain variants (the ablation of the reference's Appendix Table
 once, into one descriptor store that all variants and keynums share, and
 the describes are timed apart from the pair stages.
 
-It prints FMR, IR, RR, RRE and RTE per variant, split and keynum, with the
-JAX package's rows beside each (on the CPU with these weights at keynum
-1024, ``checkpoints/quality_full/jax_cpu_reference.json``; on a TPU,
-``QUALITY.json``'s ``benchmark``), and the pair stages' pairs per second; ``--out`` also writes them as JSON. It runs on CUDA unless
-``--device cpu`` is given.
+It prints FMR, IR, RR (PointDSC's), RR_pred (the Predator protocol's,
+over the 15 non-consecutive pairs of each scene), RRE and RTE per variant,
+split and keynum, with the JAX package's rows beside each (on the CPU with
+these weights at keynum 1024,
+``checkpoints/quality_full/jax_cpu_reference.json``; on a TPU,
+``QUALITY.json``'s ``benchmark``), and the pair stages' pairs per second.
+Then the pose-sync probe (:func:`pose_sync_probe`) on the first
+``3dmatch_analog`` scene. ``--out`` also writes everything as JSON. It runs
+on CUDA unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -26,7 +30,6 @@ import argparse
 import dataclasses
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -34,7 +37,10 @@ import numpy as np
 import torch
 
 from roreg_tpu_torch.data.synthetic import synthetic_scene
+from roreg_tpu_torch.device import device_info
 from roreg_tpu_torch.eval.evaluator import Evaluator
+from roreg_tpu_torch.eval.metrics import registration_errors
+from roreg_tpu_torch.eval.posegraph import sync_scene
 from roreg_tpu_torch.pipeline.config import PipelineConfig
 from roreg_tpu_torch.pipeline.quality_config import quality_full_config, quality_scene_params
 from roreg_tpu_torch.pipeline.registration import RegistrationPipeline
@@ -47,6 +53,7 @@ __all__ = [
     "describe_scenes",
     "run_variants",
     "format_row",
+    "pose_sync_probe",
 ]
 
 VARIANTS = {
@@ -150,15 +157,60 @@ def format_row(variant: str, cell: str, summary: dict, refs: dict | None = None)
     if refs is None:
         refs = {k: r[variant][cell] for k, r in jax_references().items() if cell in r.get(variant, {})}
 
+    def num(v, fmt: str) -> str:
+        return "None" if v is None else format(v, fmt)
+
     def val(key: str, fmt: str) -> str:
-        mine = format(summary[key], fmt)
+        mine = num(summary[key], fmt)
         if not refs:
             return mine
-        return f"{mine} (JAX " + ", ".join(f"{k} {format(r[key], fmt)}" for k, r in refs.items()) + ")"
+        return f"{mine} (JAX " + ", ".join(f"{k} {num(r.get(key), fmt)}" for k, r in refs.items()) + ")"
 
     return (f"{variant:20s} {cell:22s} FMR {val('fmr', '.3f')} IR {val('ir', '.3f')} "
-            f"RR {val('rr_pointdsc', '.3f')} RRE {val('rre', '.3f')} RTE {val('rte', '.4f')} "
+            f"RR {val('rr_pointdsc', '.3f')} RR_pred {val('rr_predator', '.3f')} "
+            f"RRE {val('rre', '.3f')} RTE {val('rte', '.4f')} "
             f"{summary['pairs']} pairs, {summary['pairs_per_sec']:.2f} pairs/s")
+
+
+def pose_sync_probe(variables: dict, cfg: PipelineConfig, scene, desc_store: dict, device=None) -> dict | None:
+    """The JAX package's pose-sync probe (``scripts/validate_quality.py``
+    ``_eval_pose_sync``): ``scene``'s pairs registered with ``keynum``
+    min(1024, keypoints), no RD, no RM, yohoc and seed 13 (from the
+    descriptors in ``desc_store``); pair 0's transform is then corrupted by
+    90 degrees and 1 m, and RR is scored raw, corrupted, and corrupted then
+    synchronized (``eval.posegraph.sync_scene``). None for a scene of fewer
+    than 3 pairs."""
+    ecfg = dataclasses.replace(cfg, keynum=min(1024, cfg.num_keypoints), use_rd=False, use_rm=False,
+                               estimator="yohoc")
+    pipe = RegistrationPipeline(ecfg, variables, device)
+    res = Evaluator(pipe, desc_store=desc_store).process_scene(scene, seed=13)
+    pairs = res["pairs"]
+    if len(pairs) < 3:
+        return None
+
+    def rr_of(transforms) -> float:
+        ok = []
+        for (id0, id1), T in zip(pairs, transforms):
+            rre, rte = registration_errors(np.asarray(T), scene.get_transform(id0, id1))
+            ok.append(float(rre < ecfg.rr_rot_deg and rte < ecfg.rr_trans))
+        return float(np.mean(ok))
+
+    bad = [np.asarray(T).copy() for T in res["transforms"]]
+    corrupt = np.eye(4)
+    corrupt[:3, :3] = np.array([[0, -1, 0], [1, 0, 0], [0, 0, 1.0]])
+    corrupt[:3, 3] = [1.0, 0, 0]
+    bad[0] = corrupt @ bad[0]
+    refined = sync_scene(pairs, bad, res["overlaps"], device=pipe.device)
+    return {"pairs": len(pairs), "pair0_registered": bool(res["rr"][0]), "rr_raw": rr_of(res["transforms"]),
+            "rr_corrupted": rr_of(bad), "rr_corrupted_synced": rr_of(refined)}
+
+
+def jax_pose_sync() -> dict | None:
+    """``QUALITY.json``'s pose-sync probe, made by the JAX package on a TPU."""
+    if not os.path.exists(QUALITY_JSON):
+        return None
+    with open(QUALITY_JSON) as f:
+        return json.load(f).get("benchmark", {}).get("pose_sync")
 
 
 def main(argv=None) -> int:
@@ -185,21 +237,20 @@ def main(argv=None) -> int:
     log(f"scenes built: {', '.join(f'{s} {len(g)} scenes' for s, g in groups.items())}")
     desc_store: dict = {}
     pipe = RegistrationPipeline(cfg, variables, args.device)
-    device = {"name": "cpu"}
-    if pipe.device.type == "cuda":
-        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                             capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-        device = {"name": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+    device = device_info(pipe.device)
     log(f"device: {device}")
     described = describe_scenes(pipe, groups, desc_store)
     del pipe
     log(f"described {described['clouds']} clouds in {described['seconds']:.1f} s, "
         f"{described['dropped_blocks']} dropped blocks")
     results = run_variants(variables, cfg, groups, variants, keynums, desc_store, args.device, log)
+    probe = pose_sync_probe(variables, cfg, next(iter(groups["3dmatch_analog"].values())), desc_store,
+                            args.device)
+    log(f"pose sync probe: {probe} (JAX on a TPU: {jax_pose_sync()})")
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, "w") as f:
-            json.dump({"device": device, "describe": described, "splits": results,
+            json.dump({"device": device, "describe": described, "splits": results, "pose_sync": probe,
                        "wall_s": time.perf_counter() - t0}, f, indent=1)
     return 0
 

@@ -49,6 +49,7 @@ __all__ = [
     "unflatten_variables",
     "init_variables",
     "load_checkpoint_dir",
+    "load_components",
     "CHECKPOINT_COMPONENTS",
     "QUALITY_FULL_DIR",
 ]
@@ -196,13 +197,11 @@ def init_variables(cfg: PipelineConfig, seed: int = 0) -> dict[str, dict]:
     return out
 
 
-def load_checkpoint_dir(path: str, cfg: PipelineConfig) -> dict[str, dict]:
-    """A converted checkpoint set -> ``{component: nested numpy variables}``
-    for all five networks. Raises ``ValueError`` when the set's
-    ``config_tag.json`` names another configuration than ``cfg`` (small
-    against full, voxel size or group size): parameter shapes do not
-    depend on them, so such a set would load silently and skew every
-    number."""
+def _check_tag(path: str, cfg: PipelineConfig) -> None:
+    """Raise ``ValueError`` when the set's ``config_tag.json`` names another
+    configuration than ``cfg`` (small against full, voxel size or group
+    size): parameter shapes do not depend on them, so such a set would load
+    silently and skew every number."""
     from roreg_tpu_torch.pipeline.quality_config import quality_small_config
 
     with open(os.path.join(path, "config_tag.json")) as f:
@@ -212,11 +211,47 @@ def load_checkpoint_dir(path: str, cfg: PipelineConfig) -> dict[str, dict]:
     bad = {k: (tag[k], v) for k, v in have.items() if k in tag and tag[k] != v}
     if bad:
         raise ValueError(f"checkpoint config mismatch in {path}: (tag, config) {bad}")
+
+
+def _read_npz(fn: str) -> dict:
+    with np.load(fn) as z:
+        return unflatten_variables({k: z[k] for k in z.files})
+
+
+def load_checkpoint_dir(path: str, cfg: PipelineConfig) -> dict[str, dict]:
+    """A converted checkpoint set -> ``{component: nested numpy variables}``
+    for all five networks. Raises ``ValueError`` when the set's
+    ``config_tag.json`` names another configuration than ``cfg``."""
+    _check_tag(path, cfg)
     missing = [c for c in CHECKPOINT_COMPONENTS if not os.path.exists(os.path.join(path, f"{c}.npz"))]
     if missing:
         raise FileNotFoundError(f"{path} lacks {missing}")
-    out = {}
-    for comp in CHECKPOINT_COMPONENTS:
-        with np.load(os.path.join(path, f"{comp}.npz")) as z:
-            out[comp] = unflatten_variables({k: z[k] for k in z.files})
-    return out
+    return {comp: _read_npz(os.path.join(path, f"{comp}.npz")) for comp in CHECKPOINT_COMPONENTS}
+
+
+def load_components(
+    path: str, cfg: PipelineConfig, variables: dict[str, dict],
+    components: tuple[str, ...] = CHECKPOINT_COMPONENTS,
+) -> list[str]:
+    """Replace in ``variables`` each of ``components`` that ``variables``
+    holds and whose ``<comp>.npz`` lies in ``path``; the others keep their
+    values (the counterpart of the JAX package's
+    ``load_pipeline_variables``). Each loaded set must have the shapes of
+    the entry it replaces, and the set's ``config_tag.json``, where there
+    is one, must name ``cfg``'s configuration. Returns the loaded names."""
+    if os.path.exists(os.path.join(path, "config_tag.json")):
+        _check_tag(path, cfg)
+    loaded = []
+    for comp in components:
+        fn = os.path.join(path, f"{comp}.npz")
+        if comp not in variables or not os.path.exists(fn):
+            continue
+        new = _read_npz(fn)
+        want = {k: v.shape for k, v in flatten_variables(variables[comp]).items()}
+        got = {k: v.shape for k, v in flatten_variables(new).items()}
+        if got != want:
+            bad = sorted(k for k in set(want) | set(got) if want.get(k) != got.get(k))
+            raise ValueError(f"{fn}: shapes differ from the configuration's at {bad[:5]}")
+        variables[comp] = new
+        loaded.append(comp)
+    return loaded

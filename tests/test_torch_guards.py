@@ -38,6 +38,11 @@ def test_no_jax_imports_in_port():
         "roreg_tpu_torch/kernels/cell_dense.py", "roreg_tpu_torch/kernels/skip_concat.py",
         "roreg_tpu_torch/models/rm.py", "roreg_tpu_torch/eval/evaluator.py",
         "roreg_tpu_torch/quality.py", "roreg_tpu_torch/weights.py", "chip_smoke.py",
+        "roreg_tpu_torch/bench.py", "roreg_tpu_torch/data/ply.py", "roreg_tpu_torch/data/dataset.py",
+        "roreg_tpu_torch/data/synthetic.py", "roreg_tpu_torch/data/visualize.py",
+        "roreg_tpu_torch/eval/benchmark.py", "roreg_tpu_torch/eval/posegraph.py",
+        "roreg_tpu_torch/utils/profiling.py", "roreg_tpu_torch/cli/demo.py", "roreg_tpu_torch/cli/test.py",
+        "roreg_tpu_torch/cli/testset.py",
     } <= scanned
     bad = []
     for path in _port_sources():

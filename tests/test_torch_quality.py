@@ -129,3 +129,29 @@ def test_quality_sweep_describes_each_cloud_once():
     ref = {"fmr": 1.0, "ir": 0.5, "rr_pointdsc": 1.0, "rre": 1.0, "rte": 0.01}
     line = format_row("rd_yohoc", "3dmatch_analog@16", results["rd_yohoc"]["3dmatch_analog@16"], {"cpu": ref})
     assert "(JAX cpu 0.500)" in line
+
+
+def test_pose_sync_probe_flow():
+    """The pose-sync probe at a tiny size on the CPU: 3 pairs from the
+    shared store (no describe), pair 0 corrupted by 90 degrees and 1 m,
+    which fails it whenever it had registered."""
+    from roreg_tpu_torch.pipeline.quality_config import quality_full_config
+    from roreg_tpu_torch.pipeline.registration import RegistrationPipeline
+    from roreg_tpu_torch.quality import describe_scenes, pose_sync_probe, quality_scenes
+    from roreg_tpu_torch.weights import init_variables
+
+    cfg = dataclasses.replace(
+        quality_full_config(12), voxel_size=0.05, block_caps=(256, 128, 64, 32), num_keypoints=48,
+        max_iter=32, backbone_compute_dtype=None)
+    variables = init_variables(cfg, 0)
+    groups = quality_scenes(cfg, scenes=1, clouds=3, points_per_cloud=1200, surface_extent=1.0)
+    store: dict = {}
+    describe_scenes(RegistrationPipeline(cfg, variables, device="cpu"), {"hi": groups["3dmatch_analog"]}, store)
+    scene = groups["3dmatch_analog"]["scene0"]
+    before = dict(store)
+    probe = pose_sync_probe(variables, cfg, scene, store, device="cpu")
+    assert store == before
+    assert set(probe) == {"pairs", "pair0_registered", "rr_raw", "rr_corrupted", "rr_corrupted_synced"}
+    assert probe["pairs"] == 3
+    assert probe["rr_corrupted"] == pytest.approx(probe["rr_raw"] - probe["pair0_registered"] / 3)
+    assert 0.0 <= probe["rr_corrupted_synced"] <= 1.0
