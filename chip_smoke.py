@@ -45,18 +45,25 @@ Phases, each ending in one flushed progress line on stderr:
    chunk 6 on the first cloud (as phase 3b); then each of the 56 clouds is
    described once into one store (each cloud ran 10 chunks of the five
    block kernels, and no block was dropped), and the four chain variants
-   register all 168 pairs at keynum 1024. FMR, IR, RR and the Predator
+   register all 168 pairs at keynum 1024 through the batched evaluator
+   (``eval_pair_batch`` 6 pairs a call). FMR, IR, RR and the Predator
    protocol's RR must lie within the bands of ``QUALITY_BANDS`` around the
    JAX package's rows for these weights on the CPU; ``QUALITY.json``'s TPU
    rows are printed beside. Last, the pose-sync probe on the first
    3dmatch_analog scene (21 pairs, pair 0 corrupted by 90 degrees and 1 m):
    the synchronized RR may fall at most one pair below the raw RR, and
    must beat the corrupted RR where pair 0 registered in the raw run;
+7d. pair batch: one batch of 7 pairs of that scene at the bench's width
+   (keynum 1000, 1000 yohoo iterations, the default chain, the trained
+   weights) through the batched pair stage and one pair at a time with the
+   same permutations: transforms within ``PAIR_BATCH_T_TOL``, ``m0``,
+   ``m1`` and ``est_valid`` equal;
 8a. bench kernels: phase 3b's check at the bench's block capacities
    (2880, 832, 240, 80) and at its fallback (3072, 1024, 512, 256), chunk
    10, on the bench's cloud 0;
 8b. bench: ``roreg_tpu_torch.bench.run_bench`` once at its full
-   configuration (8 clouds, 28 pairs, both timed phases); its JSON line is
+   configuration (8 clouds, 28 pairs in 4 batches of 7, both timed
+   phases); its JSON line is
    printed, each phase must give 28 finite transforms, each describe must
    have run 6 chunks of the five block kernels, and no block may be
    dropped after a fallback rebuild. Then a host build made to raise on
@@ -67,7 +74,15 @@ Phases, each ending in one flushed progress line on stderr:
    clouds from the cache (no kernel launch), write ``pre.log`` and
    ``results.log``, and give no Predator RR (2 clouds); then ``cli.test
    --testset synthetic`` (4 clouds, 6 pairs), whose Predator RR must be a
-   number.
+   number;
+10. train: GF, ET, RM and RD each train ``TRAIN_STEPS`` steps through
+   ``cli.train``'s set-up at full width (2 synthetic scenes of 3 clouds, the
+   default block-engine describe, the reference's batch sizes) in a
+   temporary directory; the describes must have run the five block
+   kernels, every loss must be finite, and each head's best checkpoint must
+   load into a ``PipelineConfig()`` pipeline that registers the smoke pair
+   to a proper rigid motion. Steps/s, peak memory and the describes'
+   launches are printed per head.
 
 Each slice checks the descriptor shapes and norms, the launch counts of
 every kernel (zeroed just before the run: each kernel of the path ran
@@ -181,6 +196,11 @@ QUALITY_BANDS = {"ir": 0.03, "fmr": 0.04, "full_rr_hi_min": 0.97, "full_rr_lo": 
 # its pairs against the raw RR
 POSE_SYNC_SLACK_PAIRS = 1
 QUALITY_KEYNUM = 1024
+# phase 7d: the batched pair stage against the one-pair path, as
+# tests/test_dist_eval.py holds the JAX package's (f32 sums in another order)
+PAIR_BATCH_T_TOL = 1e-4
+# phase 10: steps a head trains
+TRAIN_STEPS = 20
 
 # the run ends itself (exit code 1, tracebacks on stderr) after this long;
 # it must end within 1200 s, builds included
@@ -654,7 +674,7 @@ def phase_rm_reference(cfg, seed: int, device: str = "cuda") -> dict:
         ones = torch.ones(keys.shape[0], dtype=torch.bool)
         s = cpu.sample_keypoints(keys, cpu.detect(gf, ones), ones)
         sampled += [gf[s], keys[s]]
-    gf0, k0, gf1, k1 = sampled
+    gf0, k0, gf1, k1 = (x[None] for x in sampled)  # one pair: B = 1
     with torch.inference_mode():
         ref = rm_apply(cpu.nets["rm"], gf0, gf1, k0, k1)
         out = [x.cpu() for x in rm_apply(gpu.nets["rm"], *(t.to(device) for t in (gf0, gf1, k0, k1)))]
@@ -768,6 +788,7 @@ def phase_quality(seed: int, per_chunk: dict, device: str = "cuda") -> dict:
     progress(f"phase 7 pose-sync probe on {first.name}: {probe} (JAX on a TPU: {jax_pose_sync()})")
     if faults:
         raise AssertionError("phase 7 quality outside its bands: " + "; ".join(faults))
+    pair_batch = phase_pair_batch(variables, first, store, seed, device)
     rates = {}
     for v, rows in results.items():
         pairs = sum(rows[c]["pairs"] for c in cells)
@@ -780,8 +801,64 @@ def phase_quality(seed: int, per_chunk: dict, device: str = "cuda") -> dict:
             "jax": {k: {v: {c: r[v][c] for c in cells} for v in results} for k, r in refs.items()},
             "pair_stages_s": pair_s,
             "pairs_per_sec": rates,
-            "pose_sync": probe, "pose_sync_jax_tpu": jax_pose_sync(),
+            "pose_sync": probe, "pose_sync_jax_tpu": jax_pose_sync(), "pair_batch": pair_batch,
             "bands": QUALITY_BANDS, "seconds": time.perf_counter() - t0}
+
+
+def phase_pair_batch(variables: dict, scene, store: dict, seed: int, device: str = "cuda") -> dict:
+    """Phase 7d: one batch of 7 pairs of ``scene`` through the batched pair
+    stage and the same 7 pairs one at a time, at the bench's width (keynum
+    1000, 1000 yohoo iterations, the default chain) on the trained weights
+    and the stored descriptors (clouds missing from ``store`` are described
+    into it). Each cloud's keypoints are sampled once (RD + NMS), both runs
+    take the same permutations; transforms must agree within
+    ``PAIR_BATCH_T_TOL``, and ``m0``, ``m1`` and ``est_valid`` must be
+    equal."""
+    from roreg_tpu_torch.bench import bench_config
+    from roreg_tpu_torch.eval.evaluator import Evaluator
+    from roreg_tpu_torch.pipeline.quality_config import quality_full_config
+    from roreg_tpu_torch.pipeline.registration import RegistrationPipeline
+
+    bench_cfg = bench_config()
+    cfg = dataclasses.replace(quality_full_config(), keynum=bench_cfg.keynum, max_iter=bench_cfg.max_iter,
+                              eval_pair_batch=bench_cfg.eval_pair_batch)
+    pipe = RegistrationPipeline(cfg, variables, device=device)
+    ev = Evaluator(pipe, desc_store=store)
+    nb = cfg.eval_pair_batch
+    rows = {}
+    with torch.inference_mode():
+        for k in range(len(scene.clouds)):
+            bb, gf, det = ev.describe_cloud(scene, k)
+            kp = pipe._tensor(scene.keypoints[k])
+            s = pipe.sample_keypoints(kp, det, torch.ones(kp.shape[0], dtype=torch.bool, device=pipe.device))
+            rows[str(k)] = (bb[s], gf[s], kp[s])
+        pairs = list(scene.pair_ids)[:nb]
+        sets = [torch.stack([rows[p[side]][i] for p in pairs]) for i in range(3) for side in (0, 1)]
+        bb0, bb1, gf0, gf1, k0, k1 = sets
+        gen = torch.Generator(device=pipe.device).manual_seed(seed)
+        perm = torch.argsort(torch.rand((nb, cfg.keynum), generator=gen, device=pipe.device), -1)
+        secs = {}
+        for rep in range(2):  # the first of each is a warm-up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = pipe.batched_pair_stage(bb0, bb1, gf0, gf1, k0, k1, perm=perm)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            singles = [pipe.pair_stage(bb0[b], bb1[b], gf0[b], gf1[b], k0[b], k1[b], perm=perm[b]) for b in range(nb)]
+            torch.cuda.synchronize()
+            secs = {"batched_s": t1 - t0, "one_at_a_time_s": time.perf_counter() - t1}
+    t_err = max(float((out["transform"][b] - one["transform"]).abs().max()) for b, one in enumerate(singles))
+    unequal = {key: [b for b, one in enumerate(singles) if not torch.equal(out[key][b], one[key])]
+               for key in ("m0", "m1", "est_valid")}
+    res = {"pairs": nb, "keynum": cfg.keynum, "max_transform_err": t_err, "unequal_pairs": unequal,
+           "valid_matches": [int(one["est_valid"].sum()) for one in singles], **secs,
+           "pairs_per_sec_batched": nb / secs["batched_s"], "pairs_per_sec_one_at_a_time": nb / secs["one_at_a_time_s"]}
+    if t_err > PAIR_BATCH_T_TOL or not np.isfinite(t_err) or any(unequal.values()):
+        raise AssertionError(f"phase 7d: the batched pair stage differs from the one-pair path: {res}")
+    progress(f"phase 7d pair batch: {nb} pairs at keynum {cfg.keynum}, batched vs one at a time: transforms "
+             f"within {t_err:.1e} (tol {PAIR_BATCH_T_TOL}), m0/m1/est_valid equal; {res['pairs_per_sec_batched']:.1f} "
+             f"pairs/s batched, {res['pairs_per_sec_one_at_a_time']:.1f} one at a time")
+    return res
 
 
 BLOCK_PER_CHUNK = {"halo_conv": 17, "block_gather": 4, "up_conv": 3, "skip_concat": 2, "cell_dense": 2}
@@ -938,6 +1015,113 @@ def phase_cli(device: str = "cuda") -> dict:
     return out
 
 
+def phase_train(pair: dict, seed: int, device: str = "cuda") -> dict:
+    """Phase 10: each head trains ``TRAIN_STEPS`` steps through
+    ``cli.train``'s own set-up (``prepare``: the default block-engine
+    describe of 2 synthetic scenes of 3 clouds, the reference's batch sizes,
+    4 held-out batches, validation twice) in a temporary directory,
+    GF first so that ET trains over the trained GF. The GF/ET feature cache
+    is filled before the step loop, so that the loop times training alone.
+    Each head's losses must be finite, its best checkpoint must load into a
+    ``PipelineConfig()`` pipeline, which must register the smoke pair to a
+    proper rigid motion."""
+    import contextlib
+    import tempfile
+
+    from roreg_tpu_torch.cli import train as cli_train
+    from roreg_tpu_torch.pipeline.config import PipelineConfig
+    from roreg_tpu_torch.pipeline.extractor import effective_chunk
+    from roreg_tpu_torch.pipeline.registration import RegistrationPipeline
+    from roreg_tpu_torch.train.checkpoints import load_pipeline_variables
+    from roreg_tpu_torch.weights import init_variables
+
+    kernels = _kernels()
+    cfg = PipelineConfig()
+    chunks = cfg.group_size // effective_chunk(cfg.group_size, cfg.group_chunk)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="roreg_train_") as tmp:
+        for comp in ("GF", "ET", "RM", "RD"):
+            args = cli_train.get_parser().parse_args([
+                "--component", comp, "--steps", str(TRAIN_STEPS), "--val_interval", str(TRAIN_STEPS // 2), "--synthetic_scenes", "2",
+                "--data_root", os.path.join(tmp, "data"), "--checkpoint_dir", os.path.join(tmp, "ckpt"),
+                "--device", device, "--seed", str(seed)])
+            for k in kernels.values():
+                k.launches = 0
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(sys.stderr):
+                trainer, ctx = cli_train.prepare(args)
+            if ctx["cache"] is not None:  # every cloud's rotated features before the step loop
+                rng = np.random.default_rng(seed)
+                for ds in ctx["scenes"]:
+                    for pc_id in ds.pc_ids:
+                        ctx["cache"].get(ds, pc_id, rng)
+            torch.cuda.synchronize()
+            launches = {n: k.launches for n, k in kernels.items() if k.launches}
+            prepare_s = time.perf_counter() - t0
+            describes = launches.get("halo_conv", 0) / (BLOCK_PER_CHUNK["halo_conv"] * chunks)
+            expected = {n: int(c * chunks * describes) for n, c in BLOCK_PER_CHUNK.items()}
+            if describes < 6 or describes != int(describes) or launches != expected:
+                raise AssertionError(f"phase 10 {comp}: describe launches {launches}, expected "
+                                     f"{BLOCK_PER_CHUNK} x {chunks} chunks a describe")
+            del ctx
+            losses, secs = [], {"step": 0.0, "val": 0.0, "save": 0.0, "init": 0.0}
+
+            def timed(fn, key):
+                def run(*a, **k):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    r = fn(*a, **k)
+                    torch.cuda.synchronize()
+                    secs[key] += time.perf_counter() - t
+                    return r
+                return run
+
+            step = timed(trainer.step_fn, "step")
+
+            def step_fn(state, batch):
+                m = step(state, batch)
+                losses.append(float(m["loss"]))
+                return m
+
+            trainer.step_fn = step_fn
+            trainer.val_fn = timed(trainer.val_fn, "val")
+            trainer.save = timed(trainer.save, "save")
+            trainer.init_fn = timed(trainer.init_fn, "init")
+            torch.cuda.reset_peak_memory_stats()
+            t1 = time.perf_counter()
+            result = trainer.run(steps=TRAIN_STEPS)
+            run_s = time.perf_counter() - t1
+            peak = torch.cuda.max_memory_allocated()
+            del trainer
+            if len(losses) != TRAIN_STEPS or not np.isfinite(losses).all():
+                raise AssertionError(f"phase 10 {comp}: losses {losses}")
+            variables = init_variables(cfg, seed)
+            loaded = load_pipeline_variables(os.path.join(tmp, "ckpt"), variables, cfg)
+            if comp.lower() not in loaded:
+                raise AssertionError(f"phase 10 {comp}: the best checkpoint did not load ({loaded})")
+            pipe = RegistrationPipeline(cfg, variables, device=device)
+            T = pipe.register_pair(pair["points0"], None, pair["keys0"], pair["points1"], None,
+                                   pair["keys1"])["transform"].cpu().double()
+            del pipe
+            R = T[:3, :3]
+            if not (bool(torch.isfinite(T).all()) and torch.allclose(R @ R.T, torch.eye(3, dtype=R.dtype), atol=1e-4)
+                    and abs(float(torch.linalg.det(R)) - 1) < 1e-4):
+                raise AssertionError(f"phase 10 {comp}: registration after loading gave {T}")
+            out[comp] = {"steps": TRAIN_STEPS, "steps_per_sec": TRAIN_STEPS / secs["step"], "step_s": secs["step"],
+                         "val_s": secs["val"], "save_s": secs["save"], "init_s": secs["init"], "run_s": run_s,
+                         "prepare_s": prepare_s,
+                         "peak_mem_gb": peak / 2**30,
+                         "first_loss": losses[0], "last_loss": losses[-1], "best": float(result["best"]),
+                         "describes": int(describes), "describe_launches": launches, "loaded": loaded}
+            progress(f"phase 10 train {comp}: {TRAIN_STEPS} steps at {out[comp]['steps_per_sec']:.1f} steps/s "
+                     f"(loop {run_s:.1f} s: init {secs['init']:.1f} s, validation {secs['val']:.1f} s, saves "
+                     f"{secs['save']:.1f} s), "
+                     f"peak memory {peak / 2**30:.2f} GiB, loss "
+                     f"{losses[0]:.4g} -> {losses[-1]:.4g}; set-up {prepare_s:.1f} s with {int(describes)} describes "
+                     f"(launches {launches}); the best checkpoint registered the smoke pair")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -975,6 +1159,7 @@ def main() -> int:
         report["bench_kernels"] = phase_bench_kernels(args.seed)
         report["bench"] = phase_bench()
         report["cli"] = phase_cli()
+        report["train"] = phase_train(pair, args.seed)
         report["total_s"] = time.perf_counter() - T0
         entries = [{
             "name": "gather_conv",
@@ -1015,6 +1200,8 @@ def main() -> int:
                 "bench_launches": report["bench"]["launches"][name],
                 "bench_caps_ms": report["bench_kernels"]["bench"]["totals"][name]["ms"],
                 "bench_caps_bound_ms": report["bench_kernels"]["bench"]["totals"][name]["bound_ms"],
+                # phase 10: the GF feature cache's describes (12 clouds x rotations)
+                "train_cache_launches": report["train"]["GF"]["describe_launches"][name],
             })
         kernels = {"kernels": entries}
         report.update(kernels)

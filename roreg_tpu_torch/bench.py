@@ -20,13 +20,14 @@ weights' values.
 Two timed phases, both reported:
 
 1. device only: the host builds of all clouds run before the clock; cloud
-   0's describe and one pair stage are the untimed warm-up; the clock
-   covers 7 describes and all 28 pair stages, one pair at a time, and
+   0's describe and one batch of pair stages are the untimed warm-up; the
+   clock covers 7 describes and all 28 pair stages, ``eval_pair_batch`` = 7
+   pairs a call (4 batches, no padding, as ``bench.py`` runs them), and
    ends with a host readback of the transforms.
 2. end to end (the headline): the clock starts before any host work. A
    builder thread runs the host builds into a queue of 2 payloads while
-   the main thread describes each cloud as its payload lands; then all 8
-   describes' pair stages. A build that raises is passed to the main
+   the main thread describes each cloud as its payload lands; then the 28
+   pair stages in batches of 7. A build that raises is passed to the main
    thread, which raises it.
 
 Baseline: the reference registers about 1623 3DMatch pairs in 37.1 min on
@@ -51,6 +52,7 @@ import torch
 
 from roreg_tpu_torch.data.synthetic import synthetic_scene
 from roreg_tpu_torch.device import device_info, resolve_device
+from roreg_tpu_torch.dist.eval import pair_batch_from_stacks
 from roreg_tpu_torch.pipeline.config import PipelineConfig
 from roreg_tpu_torch.pipeline.extractor import PinnedArena, build_cloud_payloads, dispatch_cloud_payloads
 from roreg_tpu_torch.pipeline.registration import RegistrationPipeline
@@ -132,20 +134,30 @@ def run_bench(
         bb = dispatch_cloud_payloads(backbone, payload, key_rows, caps, cfg, dev)
         return pipe.describe_tail(bb, kps[i])
 
+    nb = max(1, cfg.eval_pair_batch)
+
     @torch.inference_mode()
+    def run_batches(descs, batches, gen) -> torch.Tensor:
+        """Every batch of (cloud, cloud) pairs through the batched pair
+        stage, all launched before the one host readback."""
+        stacks = [torch.stack([d[k] for d in descs]) for k in range(3)]
+        Ts = []
+        for batch in batches:
+            padded = batch + [batch[-1]] * (nb - len(batch))
+            i0 = torch.tensor([p[0] for p in padded], device=dev)
+            i1 = torch.tensor([p[1] for p in padded], device=dev)
+            Ts.append(pair_batch_from_stacks(pipe, i0, i1, *stacks, generator=gen)["transform"][: len(batch)])
+        return torch.cat(Ts).cpu()  # the host readback ends the phase
+
     def run_pairs(descs, gen) -> torch.Tensor:
-        Ts = [pipe.pair_stage(descs[i][0], descs[j][0], descs[i][1], descs[j][1], descs[i][2], descs[j][2],
-                              generator=gen)["transform"] for i, j in pairs]
-        return torch.stack(Ts).cpu()  # the host readback ends the phase
+        return run_batches(descs, [pairs[b:b + nb] for b in range(0, len(pairs), nb)], gen)
 
     # ---- untimed: host builds of all clouds, warm-up on cloud 0 ----
     payloads = [build(i) for i in range(n_clouds)]
     log(f"host payloads of {n_clouds} clouds built (untimed)")
     t_warm = time.perf_counter()
     d0 = describe(payloads[0], 0)
-    with torch.inference_mode():
-        pipe.pair_stage(d0[0], d0[0], d0[1], d0[1], d0[2], d0[2],
-                        generator=torch.Generator(device=dev).manual_seed(9))
+    run_batches([d0], [[(0, 0)] * nb], torch.Generator(device=dev).manual_seed(9))
     sync()
     warmup_s = time.perf_counter() - t_warm
     log(f"warm-up done in {warmup_s:.1f} s")

@@ -1,0 +1,158 @@
+"""Training CLI, the counterpart of ``roreg_tpu/cli/train.py``.
+
+    python -m roreg_tpu_torch.cli.train --component GF --steps 100000 \
+        --data_root ./data/origin_data --checkpoint_dir ./checkpoints
+
+Components: GF (descriptor), RD (detector), RM (matcher), ET (local
+rotation); the JAX package's flags, plus ``--device`` (CUDA unless
+``cpu``). Training scenes are synthetic (``make_synthetic_scene``, 3 clouds
+of 20000 points and 1024 keypoints each, written under
+``<data_root>/synthetic_train/scene<i>`` unless present there). The
+pipeline behind the features carries seeded random weights, with each
+network found in ``--checkpoint_dir`` loaded over them (``<comp>.npz`` or
+a trainer's ``<COMP>/model_best``); the trained head starts from the
+port's seeded init, or resumes from ``<checkpoint_dir>/<COMP>/model``.
+Checkpoints go to ``<checkpoint_dir>/<COMP>/model`` and ``model_best`` in
+the layout ``RegistrationPipeline`` loads (``train/checkpoints.py``): name
+a directory outside the source tree.
+
+Not ported: ``--component backbone`` (ROADMAP A10) and ``--n_devices``
+above 1 (a data-parallel mesh, ROADMAP A7) raise ``NotImplementedError``;
+``--n_devices`` 0 and 1 run on the one device.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+import numpy as np
+
+from roreg_tpu_torch.data.dataset import ThreeDMatchDataset
+from roreg_tpu_torch.data.synthetic import make_synthetic_scene
+from roreg_tpu_torch.pipeline.config import PipelineConfig
+from roreg_tpu_torch.pipeline.registration import RegistrationPipeline
+from roreg_tpu_torch.train.checkpoints import load_pipeline_variables
+from roreg_tpu_torch.train.data import RotatedFeatureCache, gf_et_batches, rd_batches, rm_batches
+from roreg_tpu_torch.train.selfrun import build_rd_match_bank
+from roreg_tpu_torch.train.trainer import TrainConfig, Trainer
+from roreg_tpu_torch.train.validators import make_val_fn
+from roreg_tpu_torch.weights import init_variables
+
+__all__ = ["get_parser", "build_scenes", "train_pipeline", "prepare", "main", "SCENE"]
+
+# the training scenes' size (the JAX package's cli.train)
+SCENE = dict(num_clouds=3, points_per_cloud=20000, num_keypoints=1024)
+
+
+def get_parser():
+    p = argparse.ArgumentParser(description="roreg_tpu_torch training")
+    p.add_argument("--component", required=True, choices=["GF", "RD", "RM", "ET", "backbone"])
+    p.add_argument("--data_root", default="./data/origin_data")
+    p.add_argument("--trainset", default="synthetic")
+    p.add_argument("--checkpoint_dir", default="./checkpoints")
+    p.add_argument("--steps", type=int, default=None)
+    p.add_argument("--val_interval", type=int, default=None,
+                   help="steps between validation passes (default: the component's reference setting)")
+    p.add_argument("--val_batches", type=int, default=4,
+                   help="held-out batches for the best-checkpoint gate (0 disables validation)")
+    p.add_argument("--group_size", type=int, default=60)
+    p.add_argument("--synthetic_scenes", type=int, default=4)
+    p.add_argument("--voxel_size", type=float, default=0.025)
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--n_devices", type=int, default=0,
+                   help="data parallel over a device mesh (0 or 1: the one device)")
+    p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    return p
+
+
+def build_scenes(args) -> list:
+    """``--synthetic_scenes`` scenes of :data:`SCENE`'s size, read from
+    ``<data_root>/synthetic_train/scene<i>`` where a gt.log is there, else
+    written there first (draws from ``default_rng(seed)``)."""
+    rng = np.random.default_rng(args.seed)
+    scenes = []
+    for i in range(args.synthetic_scenes):
+        root = os.path.join(args.data_root, "synthetic_train", f"scene{i}")
+        if os.path.exists(f"{root}/PointCloud/gt.log"):
+            ds = ThreeDMatchDataset(root, SCENE["num_clouds"])
+        else:
+            ds = make_synthetic_scene(root, rng, **SCENE)
+        ds.name = f"synthetic_train/scene{i}"
+        scenes.append(ds)
+    return scenes
+
+
+def train_pipeline(args) -> tuple[RegistrationPipeline, dict]:
+    """The pipeline whose describe feeds training, and its variables:
+    ``PipelineConfig`` at the flags' voxel and group size (the default
+    block engine), seeded random weights, the networks of
+    ``--checkpoint_dir`` loaded over them."""
+    cfg = PipelineConfig(voxel_size=args.voxel_size, group_size=args.group_size,
+                         num_keypoints=SCENE["num_keypoints"])
+    variables = init_variables(cfg, args.seed)
+    if os.path.isdir(args.checkpoint_dir):
+        load_pipeline_variables(args.checkpoint_dir, variables, cfg)
+    return RegistrationPipeline(cfg, variables, args.device), variables
+
+
+def prepare(args) -> tuple[Trainer, dict]:
+    """Everything before the step loop: the component's pipeline, scenes,
+    batch iterator (the feature cache, the RM descriptors or the RD match
+    bank: each describes on the device), held-out batches and trainer.
+    Returns the trainer and ``{"pipeline", "scenes", "cache"}`` (``cache``
+    the GF/ET feature cache, else None)."""
+    comp = args.component.lower()
+    if comp == "backbone":
+        raise NotImplementedError("--component backbone (FCGF backbone training) is not ported: "
+                                  "ROADMAP.md queue A, item A10")
+    if args.n_devices > 1:
+        raise NotImplementedError(f"--n_devices {args.n_devices} (a data-parallel mesh) is not ported: "
+                                  "ROADMAP.md queue A, item A7; 0 or 1 runs on the one device")
+    pipe, variables = train_pipeline(args)
+    scenes = build_scenes(args)
+    rng = np.random.default_rng(args.seed + 1)
+    tcfg_kw = dict(group_size=args.group_size, model_dir=args.checkpoint_dir)
+    if args.val_interval:
+        tcfg_kw["val_interval"] = args.val_interval
+    tcfg = TrainConfig.defaults(comp, **tcfg_kw)
+
+    frozen, cache = None, None
+    if comp in ("gf", "et"):
+        cache = RotatedFeatureCache(pipe)
+        data = gf_et_batches(cache, scenes, tcfg.batch_size, rng)
+        if comp == "et":
+            frozen = {"gf": variables["gf"]}
+    elif comp == "rm":
+        # each cloud's descriptor features from the current GF weights
+        gf_feats = {}
+        for ds in scenes:
+            for pc_id in ds.pc_ids:
+                kp = ds.get_kps(pc_id).astype(np.float32)
+                _, gf = pipe.describe(ds.get_pc(pc_id).astype(np.float32), None, kp)
+                gf_feats[(ds.name, pc_id)] = gf.float().cpu().numpy()
+        data = rm_batches(gf_feats, scenes, rng, min_ps=256, max_ps=1024, capacity=1024,
+                          group_size=args.group_size)
+    else:
+        data = rd_batches(build_rd_match_bank(pipe, scenes, seed=args.seed), tcfg.batch_size, rng)
+
+    # held-out batches drive the best-checkpoint gate
+    val_fn = None
+    if args.val_batches:
+        val_batches = [next(data) for _ in range(args.val_batches)]
+        val_fn = make_val_fn(comp, args.group_size, val_batches, frozen=frozen)
+    trainer = Trainer(tcfg, data, val_fn=val_fn, frozen=frozen, device=pipe.device)
+    return trainer, {"pipeline": pipe, "scenes": scenes, "cache": cache}
+
+
+def main(argv=None):
+    args = get_parser().parse_args(argv)
+    trainer, _ = prepare(args)
+    result = trainer.run(steps=args.steps)
+    print(json.dumps({k: str(v) for k, v in result.items()}))
+    return result
+
+
+if __name__ == "__main__":
+    main()

@@ -2,8 +2,9 @@
 
 Counterpart of ``roreg_tpu/core/knn.py``. Distances are
 ``|q|^2 + |r|^2 - 2 q·r`` in float32, as in the reference, so that the two
-packages rank neighbours from the same arithmetic. Queries run in row tiles
-to bound the (tile, N) score block. Masked reference rows never win.
+packages rank neighbours from the same arithmetic. ``knn`` and ``nn`` run
+their queries in row tiles to bound the (tile, N) score block;
+``mutual_nn`` takes leading (pair) axes. Masked reference rows never win.
 """
 
 from __future__ import annotations
@@ -63,18 +64,19 @@ def mutual_nn(
     feats1: torch.Tensor,
     mask0: torch.Tensor | None = None,
     mask1: torch.Tensor | None = None,
-    tile: int = 2048,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Mutual nearest neighbours in feature space: ``nn01`` (m,) and
-    ``is_mutual`` (m,) bool."""
-    m, n = feats0.shape[0], feats1.shape[0]
-    dev = feats0.device
+    """Mutual nearest neighbours in feature space, over any leading (pair)
+    axes: feats (..., M, C) and (..., N, C) -> ``nn01`` (..., M) and
+    ``is_mutual`` (..., M) bool. Masked rows never win; equal distances go
+    to the lower index. The (..., M, N) distances are held whole (M and N
+    are keypoint sets of at most a few thousand rows)."""
     if mask0 is None:
-        mask0 = torch.ones(m, dtype=torch.bool, device=dev)
+        mask0 = torch.ones(feats0.shape[:-1], dtype=torch.bool, device=feats0.device)
     if mask1 is None:
-        mask1 = torch.ones(n, dtype=torch.bool, device=dev)
-    _, nn01 = nn(feats0, feats1, ref_mask=mask1, tile=tile)
-    _, nn10 = nn(feats1, feats0, ref_mask=mask0, tile=tile)
-    back = nn10[nn01]
-    is_mutual = (back == torch.arange(m, device=dev)) & mask0 & mask1[nn01]
-    return nn01, is_mutual
+        mask1 = torch.ones(feats1.shape[:-1], dtype=torch.bool, device=feats1.device)
+    d2 = (feats0 * feats0).sum(-1)[..., :, None] + (feats1 * feats1).sum(-1)[..., None, :] - 2.0 * (feats0 @ feats1.mT)
+    big = torch.full_like(d2, _BIG)
+    nn01 = torch.where(mask1[..., None, :], d2, big).min(-1).indices
+    nn10 = torch.where(mask0[..., :, None], d2, big).min(-2).indices
+    ids = torch.arange(feats0.shape[-2], device=feats0.device)
+    return nn01, (nn10.gather(-1, nn01) == ids) & mask0 & mask1.gather(-1, nn01)

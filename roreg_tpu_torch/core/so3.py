@@ -11,6 +11,7 @@ import torch
 __all__ = [
     "matrix_from_quaternion",
     "quaternion_from_matrix",
+    "quaternion_angle_deg",
     "nearest_group_index",
     "residual_quaternion",
 ]
@@ -54,6 +55,15 @@ def quaternion_from_matrix(R: torch.Tensor) -> torch.Tensor:
     q = torch.gather(cands, -2, idx)[..., 0, :]
     q = q / torch.linalg.norm(q, dim=-1, keepdim=True).clamp_min(1e-12)
     return torch.where(q[..., :1] < 0, -q, q)
+
+
+def quaternion_angle_deg(q0: torch.Tensor, q1: torch.Tensor) -> torch.Tensor:
+    """Angular error between quaternions in degrees (the reference's
+    validation metric), as ``roreg_tpu.core.so3.quaternion_angle_deg``."""
+    q0 = q0 / torch.linalg.norm(q0, dim=-1, keepdim=True).clamp_min(1e-4)
+    q1 = q1 / torch.linalg.norm(q1, dim=-1, keepdim=True).clamp_min(1e-4)
+    loss_q = (1.0 - (q0 * q1).sum(-1) ** 2).clamp_min(1e-7)
+    return torch.rad2deg(torch.arccos((1.0 - 2.0 * loss_q).clamp(-1.0, 1.0)))
 
 
 def nearest_group_index(R: torch.Tensor, rotations: torch.Tensor) -> torch.Tensor:

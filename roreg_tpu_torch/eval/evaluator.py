@@ -8,8 +8,9 @@ a ``data.dataset.ThreeDMatchDataset`` (files in the 3DMatch layout) or a
 interface. Descriptors can be kept in a shared store of device tensors
 (``desc_store``) and in an npz cache on disk (``cache_dir``), in the JAX
 package's layout, so that either package reads the other's files. Pairs
-run one at a time through
-``RegistrationPipeline.register_pair_from_descriptors``. The averages are
+run ``cfg.eval_pair_batch`` at a time through
+``dist.eval.pair_batch_from_stacks``, as the JAX package's evaluator runs
+them. The averages are
 the reference's: FMR, IR and RR are means of per-scene means; RRE and RTE
 are per-scene means over the registered pairs (180 and 1.0 for a scene
 with none), averaged over scenes. With ``cfg.pose_sync`` a scene of 3 pairs
@@ -98,40 +99,73 @@ class Evaluator:
 
     @torch.inference_mode()
     def process_scene(self, ds, seed: int = 0) -> dict:
-        """Register every pair of ``ds`` in the order of its gt, each from the
-        stored descriptors of its two clouds, with draws from a generator on
-        the pipeline's device seeded with ``seed``. Returns per-pair lists:
-        ``pairs`` (int ids), ``transforms`` (float32), ``overlaps``, ``fmr``,
-        ``ir``, ``rr``, and ``rre``/``rte`` of the registered pairs; with
-        pose sync also ``transforms_raw``."""
+        """Register every pair of ``ds`` in the order of its gt,
+        ``cfg.eval_pair_batch`` pairs a call of
+        ``dist.eval.pair_batch_from_stacks``, with draws from a generator on
+        the pipeline's device seeded with ``seed``. The scene's clouds are
+        stacked on the device once: with RD each cloud's keypoints are
+        sampled once (NMS is deterministic, so every pair would sample the
+        same set); without RD the stacks hold the full descriptors and each
+        (pair, side) draws its own ``keynum`` subset from noise of shape
+        (B, 2, K), drawn batch by batch, so pairs that share a cloud sample
+        independently. The last batch is padded with duplicates of its last
+        pair, whose rows are dropped before any metric. Every batch is
+        launched before any is read back. Returns per-pair lists: ``pairs``
+        (int ids), ``transforms`` (float32), ``overlaps``, ``fmr``, ``ir``,
+        ``rr``, and ``rre``/``rte`` of the registered pairs; with pose sync
+        also ``transforms_raw``."""
+        from roreg_tpu_torch.dist.eval import pair_batch_from_stacks
+
         pipe = self.pipeline
         cfg = pipe.cfg
         gen = torch.Generator(device=pipe.device).manual_seed(seed)
-        desc = {pc_id: self.describe_cloud(ds, pc_id) for pc_id in ds.pc_ids}
-        kps = {pc_id: pipe._tensor(ds.get_kps(pc_id).astype(np.float32)) for pc_id in ds.pc_ids}
+        per_pair = not cfg.use_rd
+        rows, id2row = [], {}
+        for pc_id in ds.pc_ids:
+            bb, gf, det = self.describe_cloud(ds, pc_id)
+            kp = pipe._tensor(ds.get_kps(pc_id).astype(np.float32))
+            if not per_pair:
+                s = pipe.sample_keypoints(kp, det, torch.ones(kp.shape[0], dtype=torch.bool, device=pipe.device))
+                bb, gf, kp = bb[s], gf[s], kp[s]
+            id2row[pc_id] = len(rows)
+            rows.append((bb, gf, kp))
+        stacks = [torch.stack([r[i] for r in rows]) for i in range(3)]
+        del rows
+
+        pair_ids = list(ds.pair_ids)
+        nb = max(1, cfg.eval_pair_batch)
+        launched = []
+        for b0 in range(0, len(pair_ids), nb):
+            batch = pair_ids[b0:b0 + nb]
+            padded = batch + [batch[-1]] * (nb - len(batch))
+            i0 = torch.tensor([id2row[p[0]] for p in padded], device=pipe.device)
+            i1 = torch.tensor([id2row[p[1]] for p in padded], device=pipe.device)
+            noise = None
+            if per_pair:
+                noise = torch.rand((nb, 2, stacks[2].shape[1]), generator=gen, device=pipe.device)
+            out = pair_batch_from_stacks(pipe, i0, i1, *stacks, noise=noise, per_pair_sample=per_pair,
+                                         generator=gen)
+            launched.append((batch, out))
+
         results = {k: [] for k in ("pairs", "transforms", "overlaps", "fmr", "ir", "rr", "rre", "rte")}
-        for id0, id1 in ds.pair_ids:
-            (bb0, gf0, det0), (bb1, gf1, det1) = desc[id0], desc[id1]
-            with self.timer.stage("match_estimate"):
-                out = pipe.register_pair_from_descriptors(
-                    bb0, gf0, det0, kps[id0], bb1, gf1, det1, kps[id1], generator=gen
-                )
-                T = out["transform"].cpu().numpy()
-            km0 = kps[id0][out["sample0"][out["m0"]]].cpu().numpy()
-            km1 = kps[id1][out["sample1"][out["m1"]]].cpu().numpy()
-            T_gt = ds.get_transform(id0, id1)
-            fmr, ir = fmr_ir(km0, km1, out["est_valid"].cpu().numpy(), T_gt, cfg.tau_1, cfg.tau_2)
-            rre, rte = registration_errors(T, T_gt)
-            ok = float(rre < cfg.rr_rot_deg and rte < cfg.rr_trans)
-            results["pairs"].append((int(id0), int(id1)))
-            results["transforms"].append(T)
-            results["overlaps"].append(float(out["overlap"]))
-            results["fmr"].append(fmr)
-            results["ir"].append(ir)
-            results["rr"].append(ok)
-            if ok:
-                results["rre"].append(rre)
-                results["rte"].append(rte)
+        for batch, out in launched:
+            self.timer.block("match_estimate", out["transform"])
+            host = {k: v[: len(batch)].cpu().numpy() for k, v in out.items()}  # the padded rows go
+            for k, (id0, id1) in enumerate(batch):
+                T, T_gt = host["transform"][k], ds.get_transform(id0, id1)
+                fmr, ir = fmr_ir(host["keys_m0"][k], host["keys_m1"][k], host["est_valid"][k], T_gt,
+                                 cfg.tau_1, cfg.tau_2)
+                rre, rte = registration_errors(T, T_gt)
+                ok = float(rre < cfg.rr_rot_deg and rte < cfg.rr_trans)
+                results["pairs"].append((int(id0), int(id1)))
+                results["transforms"].append(T)
+                results["overlaps"].append(float(host["overlap"][k]))
+                results["fmr"].append(fmr)
+                results["ir"].append(ir)
+                results["rr"].append(ok)
+                if ok:
+                    results["rre"].append(rre)
+                    results["rte"].append(rte)
         if cfg.pose_sync and len(results["pairs"]) >= 3:
             self._apply_pose_sync(ds, results)
         return results

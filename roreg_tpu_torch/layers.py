@@ -9,13 +9,22 @@ __all__ = ["BatchNorm"]
 
 
 class BatchNorm(nn.Module):
-    """Inference batch norm over the last axis with running statistics:
-    ``(x - running_mean) * rsqrt(running_var + eps) * weight + bias``.
+    """Batch norm over the last axis, flax ``nn.BatchNorm``'s rule
+    (momentum 0.9, epsilon 1e-5).
 
-    Counterpart of flax ``nn.BatchNorm`` and the reference's
-    ``MaskedBatchNorm`` with ``use_running_average=True``; this slice runs
-    inference only, so batch statistics are never taken.
+    In eval mode (inference): ``(x - running_mean) * rsqrt(running_var +
+    eps) * weight + bias``, as flax with ``use_running_average=True`` and
+    the reference's ``MaskedBatchNorm`` at test time.
+
+    In training mode: normalise with the batch statistics over every axis
+    but the last, the mean and the **biased** variance, computed as flax
+    computes them (``E[x^2] - E[x]^2``, clipped at 0), and update
+    ``running = 0.9 * running + 0.1 * batch`` for both, with that biased
+    variance. (``torch.nn.BatchNorm*`` updates ``running_var`` with the
+    unbiased variance, which flax does not.)
     """
+
+    momentum = 0.9
 
     def __init__(self, channels: int, eps: float = 1e-5) -> None:
         super().__init__()
@@ -26,6 +35,14 @@ class BatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return (x - self.running_mean) * torch.rsqrt(
-            self.running_var + self.eps
-        ) * self.weight + self.bias
+        if not self.training:
+            return (x - self.running_mean) * torch.rsqrt(
+                self.running_var + self.eps
+            ) * self.weight + self.bias
+        axes = tuple(range(x.dim() - 1))
+        mean = x.mean(axes)
+        var = ((x * x).mean(axes) - mean * mean).clamp_min(0.0)
+        with torch.no_grad():
+            self.running_mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
+            self.running_var.mul_(self.momentum).add_((1 - self.momentum) * var)
+        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias

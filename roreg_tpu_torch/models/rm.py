@@ -1,5 +1,4 @@
-"""RM: the rotation-coherence matcher, graph attention + Sinkhorn OT,
-inference.
+"""RM: the rotation-coherence matcher, graph attention + Sinkhorn OT.
 
 Counterpart of ``roreg_tpu/models/rm.py``: two enhancement layers
 (feature-space k = 16, then 8), each a cross-attention with a G-d
@@ -11,8 +10,13 @@ extraction. Channels last; every stage masked, so variable point counts
 ride a static capacity. Submodules carry the flax names, so
 ``weights.load_variables`` maps the JAX variables by path.
 
-The training-only auxiliary score maps (``scores_other``) are not computed:
-no output of the registration pipeline reads them.
+The training-only auxiliary score maps (``scores_other``, the per-layer
+softmax products that ``train.losses.rm_loss`` reads) are computed only
+with ``aux_scores=True``, as the reference's training does; the
+registration pipeline builds RM without them. Every stage is
+differentiable (the kNN indices come from stable sorts, the gathered rows
+carry the gradient), so the training step back-propagates through all 100
+Sinkhorn iterations.
 """
 
 from __future__ import annotations
@@ -227,13 +231,16 @@ def extract_matches(scores_bin: torch.Tensor, mask_m: torch.Tensor, mask_n: torc
 
 class RotationCoherenceMatcher(nn.Module):
     """The full RM network. ``row_block``: blocked kNN rows (None scores
-    the whole (M, N) matrix at once)."""
+    the whole (M, N) matrix at once). ``aux_scores``: also return the
+    training loss's per-layer score maps ``scores_other``."""
 
     def __init__(
         self, group: IcosahedralGroup, ks: tuple[int, ...] = (16, 8), coor_norm_step: float = 0.025,
         sinkhorn_iters: int = 100, init_bin_score: float = 0.2, row_block: int | None = None,
+        aux_scores: bool = False,
     ):
         super().__init__()
+        self.aux_scores = aux_scores
         self.coor_norm_step = coor_norm_step
         self.sinkhorn_iters = sinkhorn_iters
         self.num_layers = len(ks)
@@ -245,23 +252,31 @@ class RotationCoherenceMatcher(nn.Module):
     def forward(self, feats0, feats1, keys0, keys1, mask0, mask1) -> dict[str, torch.Tensor]:
         """feats* (B, N, G, 32) descriptor group features, keys* (B, N, 3),
         mask* (B, N) bool -> scores (B, M+1, N+1) log-OT, matches0/1,
-        matching_scores0/1, and the final embeddings."""
+        matching_scores0/1, the final embeddings, and with ``aux_scores``
+        scores_other (B, M, N, layers)."""
         s_eqv, t_eqv = feats0, feats1
         s_coor, t_coor = keys0 / self.coor_norm_step, keys1 / self.coor_norm_step
         s_inv, t_inv = s_eqv.mean(2), t_eqv.mean(2)
         s, t = s_inv, t_inv
+        layers = []
         for i in range(self.num_layers):
             s, t = self._modules[f"layer{i}"](
                 s, t, s_eqv, t_eqv, s_coor, t_coor, s_inv, t_inv, mask0, mask1
             )
+            layers.append((s, t))
+        pair_ok = mask0[:, :, None] & mask1[:, None, :]
+        scores_other = None
+        if self.aux_scores:  # each layer's softmax-product score map
+            so = torch.stack([torch.einsum("bmf,bnf->bmn", a, b) for a, b in layers], -1)
+            so = torch.where(pair_ok[..., None], so, _NEG)
+            scores_other = torch.softmax(so, 1) * torch.softmax(so, 2)
         s_final = self.final_mlp(torch.cat([s_inv, s], -1), mask0)
         t_final = self.final_mlp(torch.cat([t_inv, t], -1), mask1)
-        pair_ok = mask0[:, :, None] & mask1[:, None, :]
         score = torch.where(pair_ok, torch.einsum("bmf,bnf->bmn", s_final, t_final), _NEG)
         scores_bin = sinkhorn_log(score, self.bin_score, self.sinkhorn_iters, mask0, mask1)
         matches0, mscores0 = extract_matches(scores_bin, mask0, mask1)
         matches1, mscores1 = extract_matches(scores_bin.transpose(1, 2), mask1, mask0)
-        return {
+        out = {
             "scores": scores_bin,
             "matches0": matches0,
             "matches1": matches1,
@@ -270,3 +285,6 @@ class RotationCoherenceMatcher(nn.Module):
             "source_final": s_final,
             "target_final": t_final,
         }
+        if scores_other is not None:
+            out["scores_other"] = scores_other
+        return out

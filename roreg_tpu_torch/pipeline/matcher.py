@@ -3,6 +3,9 @@ and the RM chain's top-match selection.
 
 Counterparts of ``rank_normalize``, ``nms_sample``, ``mutual_match`` and
 ``top_match_subset`` in ``roreg_tpu/pipeline/matcher.py``.
+``top_k_indices``, ``mutual_match`` and ``top_match_subset`` take any
+leading (pair) axes and work on the last ones; ties keep the lower index
+in every row.
 """
 
 from __future__ import annotations
@@ -30,9 +33,10 @@ def rank_normalize(scores: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 
 
 def top_k_indices(x: torch.Tensor, k: int) -> torch.Tensor:
-    """Indices of the k largest values, ties to the lower index (the order
-    ``jax.lax.top_k`` gives; ``torch.topk`` leaves tie order open)."""
-    return torch.sort(x, descending=True, stable=True).indices[:k]
+    """Indices of the k largest values along the last axis, ties to the
+    lower index (the order ``jax.lax.top_k`` gives; ``torch.topk`` leaves
+    tie order open)."""
+    return torch.sort(x, dim=-1, descending=True, stable=True).indices[..., :k]
 
 
 def nms_sample(
@@ -50,21 +54,22 @@ def nms_sample(
 
 
 def mutual_match(feats0, feats1, mask0, mask1):
-    """Group-mean invariant features -> mutual NN: (nn01 (M,), is_mutual (M,))."""
-    inv0 = feats0.mean(1)
-    inv1 = feats1.mean(1)
+    """Group-mean invariant features (..., M, G, C), (..., N, G, C) ->
+    mutual NN: (nn01 (..., M), is_mutual (..., M))."""
+    inv0 = feats0.mean(-2)
+    inv1 = feats1.mean(-2)
     inv0 = inv0 / (torch.linalg.norm(inv0, dim=-1, keepdim=True) + 1e-5)
     inv1 = inv1 / (torch.linalg.norm(inv1, dim=-1, keepdim=True) + 1e-5)
     return mutual_nn(inv0, inv1, mask0=mask0, mask1=mask1)
 
 
 def top_match_subset(scores: torch.Tensor, valid: torch.Tensor, match_n: float) -> torch.Tensor:
-    """RM top-match selection mask: keep the best ``match_n`` fraction (at
-    least 10) of the valid matches by score. ``match_n`` in [0.999, 1)
-    keeps them all (the reference's "use all" setting); ``match_n`` >= 1 is
-    a count. Equal scores keep the lower index first (a stable sort, as
-    ``jnp.argsort``)."""
-    nvalid = valid.sum()
+    """RM top-match selection mask over the last axis: keep the best
+    ``match_n`` fraction (at least 10) of the valid matches by score.
+    ``match_n`` in [0.999, 1) keeps them all (the reference's "use all"
+    setting); ``match_n`` >= 1 is a count. Equal scores keep the lower
+    index first (a stable sort, as ``jnp.argsort``)."""
+    nvalid = valid.sum(-1, keepdim=True)
     if match_n >= 1.0:
         num = nvalid.clamp_max(int(match_n))
     elif match_n >= 0.999:
@@ -72,7 +77,7 @@ def top_match_subset(scores: torch.Tensor, valid: torch.Tensor, match_n: float) 
     else:
         num = torch.minimum((nvalid * match_n).to(torch.int32).clamp_min(10), nvalid)
     s = torch.where(valid, scores, torch.full_like(scores, -_BIG))
-    order = torch.argsort(-s, stable=True)
-    rank = torch.empty_like(order)
-    rank[order] = torch.arange(s.shape[0], device=s.device)
+    order = torch.argsort(-s, dim=-1, stable=True)
+    ids = torch.arange(s.shape[-1], device=s.device).expand_as(order)
+    rank = torch.empty_like(order).scatter_(-1, order, ids)
     return valid & (rank < num)

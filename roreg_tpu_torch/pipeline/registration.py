@@ -7,10 +7,13 @@ Counterpart of ``roreg_tpu/pipeline/registration.py`` (``gf_apply``,
 the RM matcher with its top-match selection (``use_rm=True``, the
 default) or mutual nearest neighbours of group-mean descriptors
 (``use_rm=False``), then the ET residual quaternions and yohoo RANSAC, or
-yohoc RANSAC (``estimator="yohoc"``). ``pair_stage`` (match and estimate
-on sampled keypoint sets) is the one code path of both entry points:
-``register_pair`` (two clouds) and ``register_pair_from_descriptors`` (two
-clouds' stored descriptors, as the evaluator keeps them).
+yohoc RANSAC (``estimator="yohoc"``). ``RegistrationPipeline.batched_pair_stage``
+(match and estimate on B pairs of sampled keypoint sets, a leading pair
+axis on every tensor) is the one code path of every entry point:
+``pair_stage`` is its B = 1 case, which ``register_pair`` (two clouds) and
+``register_pair_from_descriptors`` (two clouds' stored descriptors) run,
+and ``dist.eval.pair_batch_from_stacks`` runs it for the evaluator and the
+bench.
 Side convention as in the reference: gt satisfies ``pts0 = R @ pts1 + t``,
 and RM and ET take cloud 1 as their source.
 
@@ -21,7 +24,8 @@ Random draws are inputs: ``perm`` (yohoo's hypothesis order), ``buckets``
 and ``gumbel`` (yohoc's group indices and triple noise) and, with
 ``use_rd=False``, ``noise0``/``noise1`` (the keypoint sampling
 priorities). When they are not given they are drawn from ``generator``, on
-its device.
+its device (yohoo's ``perm`` as the argsort of uniform draws, one row a
+pair).
 """
 
 from __future__ import annotations
@@ -85,32 +89,35 @@ def rm_apply(
     rm: RotationCoherenceMatcher, eqv0: torch.Tensor, eqv1: torch.Tensor,
     keys0: torch.Tensor, keys1: torch.Tensor,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The RM matcher on the sampled keypoint sets, with the reference's
-    side swap (source = cloud 1). Returns matches (M, 2) [index into
-    sample 0, index into sample 1], their validity (M,) and their Sinkhorn
-    matching scores (M,)."""
-    m = eqv1.shape[0]
+    """The RM matcher on sampled keypoint sets (B, M, G, 32) and keys
+    (B, M, 3), each pair with its own masks, with the reference's side swap
+    (source = cloud 1). Returns matches (B, M, 2) [index into sample 0,
+    index into sample 1], their validity (B, M) and their Sinkhorn matching
+    scores (B, M)."""
+    b, m = eqv1.shape[:2]
     out = rm(
-        eqv1[None], eqv0[None], keys1[None], keys0[None],
-        torch.ones((1, m), dtype=torch.bool, device=eqv1.device),
-        torch.ones((1, eqv0.shape[0]), dtype=torch.bool, device=eqv0.device),
+        eqv1, eqv0, keys1, keys0,
+        torch.ones((b, m), dtype=torch.bool, device=eqv1.device),
+        torch.ones((b, eqv0.shape[1]), dtype=torch.bool, device=eqv0.device),
     )
-    matches0 = out["matches0"][0]  # index into sample 0, -1 where invalid
+    matches0 = out["matches0"]  # index into sample 0, -1 where invalid
     valid = matches0 >= 0
-    pair = torch.stack([torch.where(valid, matches0, 0), torch.arange(m, device=eqv1.device)], -1)
-    return pair, valid, out["matching_scores0"][0]
+    ids = torch.arange(m, device=eqv1.device).expand(b, m)
+    pair = torch.stack([torch.where(valid, matches0, 0), ids], -1)
+    return pair, valid, out["matching_scores0"]
 
 
 def et_apply(
     et: EquivariantTransformer, bb0_m, bb1_m, gf0_m, gf1_m, idx, cfg: PipelineConfig
 ) -> torch.Tensor:
-    """Residual quaternions of matched pairs, in ``bs_et`` batches, with
-    the reference's side exchange (before0 = cloud-1 features)."""
-    m = bb0_m.shape[0]
-    return torch.cat([
-        et(bb1_m[a:b], bb0_m[a:b], gf1_m[a:b], gf0_m[a:b], idx[a:b])
-        for a, b in _chunks(m, cfg.bs_et)
-    ])
+    """Residual quaternions (..., 4) of matched pairs (..., G, 32), with the
+    reference's side exchange (before0 = cloud-1 features). Leading axes
+    are folded into one axis of rows, which run in ``bs_et`` batches."""
+    lead = idx.shape
+    rows = [x.reshape(-1, *x.shape[-2:]) for x in (bb1_m, bb0_m, gf1_m, gf0_m)]
+    idx = idx.reshape(-1)
+    q = torch.cat([et(*(x[a:b] for x in rows), idx[a:b]) for a, b in _chunks(idx.shape[0], cfg.bs_et)])
+    return q.reshape(*lead, 4)
 
 
 def sample_keypoints(
@@ -119,7 +126,9 @@ def sample_keypoints(
 ) -> torch.Tensor:
     """``keynum`` keypoint indices: NMS on the detector scores, or with
     ``use_rd=False`` the top ``noise`` priorities (uniform draws from
-    ``generator`` when not given) among the masked-in keypoints."""
+    ``generator`` when not given) among the masked-in keypoints. Without
+    RD, ``noise`` may carry leading axes (one draw per row), and so does the
+    result."""
     if cfg.use_rd:
         return nms_sample(keys, det_scores, kp_mask, cfg.keynum, cfg.nms_k)
     if noise is None:
@@ -142,6 +151,11 @@ def describe_tail(
     det = rd_apply(nets["rd"], gf, ones) if cfg.use_rd else None
     s = sample_keypoints(keypoints, det, ones, cfg, noise, generator)
     return bb[s], gf[s], keypoints[s]
+
+
+def _pair_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x (B, M, ...) at rows idx (B, M') -> (B, M', ...)."""
+    return x[torch.arange(x.shape[0], device=x.device)[:, None], idx]
 
 
 class RegistrationPipeline:
@@ -218,47 +232,44 @@ class RegistrationPipeline:
         return describe_tail(self.nets, bb, self._tensor(keypoints), self.cfg, noise, generator)
 
     @torch.inference_mode()
-    def pair_stage(
-        self,
-        bb0_s, bb1_s, gf0_s, gf1_s, k0_s, k1_s,
-        *,
-        perm=None,
-        buckets=None,
-        gumbel=None,
+    def batched_pair_stage(
+        self, bb0_s, bb1_s, gf0_s, gf1_s, k0_s, k1_s, *, perm=None, buckets=None, gumbel=None,
         generator: torch.Generator | None = None,
     ) -> dict[str, torch.Tensor]:
-        """Match and estimate on sampled keypoint sets (``keynum`` rows
-        each): RM with its top-match selection or mutual NN, the group index
-        of each match, then ET and yohoo or yohoc. The draws (``perm`` for
-        yohoo, ``buckets`` and ``gumbel`` for yohoc) are drawn from
-        ``generator`` when not given.
+        """Match and estimate on B pairs of sampled keypoint sets at once:
+        descriptors (B, keynum, G, 32), keys (B, keynum, 3). Each pair keeps
+        its own masks, draws and tie orders, so row b equals the one-pair stage
+        of pair b (up to the order of f32 sums). The draws (``perm`` (B, M)
+        for yohoo, ``buckets`` (B, max_iter) and ``gumbel`` (B, max_iter, M)
+        for yohoc) are drawn from ``generator`` when not given.
 
-        Returns ``transform``, ``overlap``, ``winner`` (the winning
-        hypothesis: a match for yohoo, an iteration for yohoc), ``m0`` and
-        ``m1`` (each match's rows in the two sets), ``match_valid``,
-        ``match_scores``, ``est_valid`` and ``dr_index``."""
+        Returns ``transform`` (B, 4, 4), ``overlap`` (B,), ``winner`` (B,) (the
+        winning hypothesis: a match for yohoo, an iteration for yohoc), ``m0``
+        and ``m1`` (B, M) (each match's rows in the two sets), ``match_valid``,
+        ``match_scores``, ``est_valid`` and ``dr_index`` (B, M)."""
         cfg = self.cfg
-        m = gf1_s.shape[0]
+        b, m = gf1_s.shape[:2]
+        dev = self.device
         if cfg.use_rm:
             pair, mvalid, mscores = rm_apply(self.nets["rm"], gf0_s, gf1_s, k0_s, k1_s)
-            m0, m1 = pair[:, 0], pair[:, 1]
+            m0, m1 = pair[..., 0], pair[..., 1]
             est_valid = top_match_subset(mscores, mvalid, cfg.match_n)
         else:
-            ones = torch.ones(m, dtype=torch.bool, device=self.device)
+            ones = torch.ones((b, m), dtype=torch.bool, device=dev)
             nn01, mvalid = mutual_match(gf0_s, gf1_s, ones, ones)
-            m0, m1 = torch.arange(m, device=self.device), nn01
-            mscores = torch.ones(m, device=self.device)
+            m0, m1 = torch.arange(m, device=dev).expand(b, m), nn01
+            mscores = torch.ones((b, m), device=dev)
             est_valid = mvalid
-        keys_m0, keys_m1 = k0_s[m0], k1_s[m1]
-        dr = est.dr_index(gf0_s[m0], gf1_s[m1], self.cayley)
+        keys_m0, keys_m1 = _pair_rows(k0_s, m0), _pair_rows(k1_s, m1)
+        gf0_m, gf1_m = _pair_rows(gf0_s, m0), _pair_rows(gf1_s, m1)
+        dr = est.dr_index(gf0_m, gf1_m, self.cayley)
         if cfg.estimator == "yohoo":
-            quats = et_apply(self.nets["et"], bb0_s[m0], bb1_s[m1], gf0_s[m0], gf1_s[m1], dr, cfg)
+            quats = et_apply(self.nets["et"], _pair_rows(bb0_s, m0), _pair_rows(bb1_s, m1), gf0_m, gf1_m, dr, cfg)
             T_hyp = est.local_transforms(quats, dr, keys_m0, keys_m1, self.rotations)
-            if perm is None:
-                perm = torch.randperm(m, generator=generator, device=_draw_device(generator))
+            if perm is None:  # a uniform permutation per pair
+                perm = torch.argsort(torch.rand((b, m), generator=generator, device=_draw_device(generator)), -1)
             T, overlap, winner = est.yohoo_ransac(
-                self._tensor(perm, torch.long), T_hyp, est_valid, keys_m0, keys_m1, mscores,
-                est_valid, cfg.ransac_ird, cfg.max_iter,
+                self._tensor(perm, torch.long), T_hyp, est_valid, keys_m0, keys_m1, mscores, est_valid, cfg.ransac_ird, cfg.max_iter,
             )
         else:
             if buckets is None or gumbel is None:
@@ -278,6 +289,34 @@ class RegistrationPipeline:
             "est_valid": est_valid,
             "dr_index": dr,
         }
+
+    @torch.inference_mode()
+    def pair_stage(
+        self,
+        bb0_s, bb1_s, gf0_s, gf1_s, k0_s, k1_s,
+        *,
+        perm=None,
+        buckets=None,
+        gumbel=None,
+        generator: torch.Generator | None = None,
+    ) -> dict[str, torch.Tensor]:
+        """Match and estimate on one pair of sampled keypoint sets
+        (``keynum`` rows each): the B = 1 case of :meth:`batched_pair_stage`.
+        RM with its top-match selection or mutual NN, the group index of
+        each match, then ET and yohoo or yohoc. The draws (``perm`` (M,) for
+        yohoo, ``buckets`` (max_iter,) and ``gumbel`` (max_iter, M) for
+        yohoc) are drawn from ``generator`` when not given.
+
+        Returns ``transform``, ``overlap``, ``winner`` (the winning
+        hypothesis: a match for yohoo, an iteration for yohoc), ``m0`` and
+        ``m1`` (each match's rows in the two sets), ``match_valid``,
+        ``match_scores``, ``est_valid`` and ``dr_index``."""
+        one = lambda x: None if x is None else torch.as_tensor(x)[None]  # noqa: E731
+        out = self.batched_pair_stage(
+            *(x[None] for x in (bb0_s, bb1_s, gf0_s, gf1_s, k0_s, k1_s)),
+            perm=one(perm), buckets=one(buckets), gumbel=one(gumbel), generator=generator,
+        )
+        return {k: v[0] for k, v in out.items()}
 
     @torch.inference_mode()
     def register_pair_from_descriptors(

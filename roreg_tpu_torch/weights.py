@@ -48,6 +48,7 @@ __all__ = [
     "flatten_variables",
     "unflatten_variables",
     "init_variables",
+    "init_module_variables",
     "load_checkpoint_dir",
     "load_components",
     "CHECKPOINT_COMPONENTS",
@@ -150,7 +151,7 @@ def export_variables(module: nn.Module) -> dict:
     flat = {}
     for t, path, transposed in _leaves(module):
         a = t.detach().cpu().numpy()
-        flat["/".join(path)] = np.ascontiguousarray(a.T if transposed else a)
+        flat["/".join(path)] = np.array(a.T if transposed else a, order="C")
     return unflatten_variables(flat)
 
 
@@ -164,6 +165,32 @@ def _truncated_normal(rng: np.random.Generator, shape, std: float) -> np.ndarray
     return (x * std / 0.87962566103423978).astype(np.float32)
 
 
+def _init_module(net: nn.Module, rng: np.random.Generator) -> dict:
+    """Random variables of one network in the JAX layout (see
+    :func:`init_variables`)."""
+    dense_paths = {
+        ("params",) + tuple(n.split(".")) + ("kernel",)
+        for n, m in net.named_modules()
+        if isinstance(m, nn.Linear) and not isinstance(m, GroupConv)
+    }
+    flat = {}
+    for t, path, transposed in _leaves(net):
+        shape = tuple(t.shape[::-1]) if transposed else tuple(t.shape)
+        leaf = path[-1]
+        if leaf == "kernel":
+            fan_in = int(np.prod(shape[:-1]))
+            scale = 1.0 if path in dense_paths else 2.0
+            a = _truncated_normal(rng, shape, np.sqrt(scale / fan_in))
+        elif leaf in ("scale", "var"):
+            a = np.ones(shape, np.float32)
+        elif leaf == "bin_score":  # the module's init_bin_score
+            a = t.detach().numpy().astype(np.float32)
+        else:
+            a = np.zeros(shape, np.float32)
+        flat["/".join(path)] = a
+    return unflatten_variables(flat)
+
+
 def init_variables(cfg: PipelineConfig, seed: int = 0) -> dict[str, dict]:
     """Random variables for the pipeline's networks, drawn with numpy from
     ``seed`` at the JAX package's initialiser scales: fan-in truncated
@@ -171,30 +198,12 @@ def init_variables(cfg: PipelineConfig, seed: int = 0) -> dict[str, dict]:
     biases, unit norms and statistics, and RM's dustbin score at its
     initial 0.2."""
     rng = np.random.default_rng(seed)
-    out = {}
-    for name, net in build_modules(cfg).items():
-        dense_paths = {
-            ("params",) + tuple(n.split(".")) + ("kernel",)
-            for n, m in net.named_modules()
-            if isinstance(m, nn.Linear) and not isinstance(m, GroupConv)
-        }
-        flat = {}
-        for t, path, transposed in _leaves(net):
-            shape = tuple(t.shape[::-1]) if transposed else tuple(t.shape)
-            leaf = path[-1]
-            if leaf == "kernel":
-                fan_in = int(np.prod(shape[:-1]))
-                scale = 1.0 if path in dense_paths else 2.0
-                a = _truncated_normal(rng, shape, np.sqrt(scale / fan_in))
-            elif leaf in ("scale", "var"):
-                a = np.ones(shape, np.float32)
-            elif leaf == "bin_score":  # the module's init_bin_score
-                a = t.detach().numpy().astype(np.float32)
-            else:
-                a = np.zeros(shape, np.float32)
-            flat["/".join(path)] = a
-        out[name] = unflatten_variables(flat)
-    return out
+    return {name: _init_module(net, rng) for name, net in build_modules(cfg).items()}
+
+
+def init_module_variables(net: nn.Module, seed: int = 0) -> dict:
+    """:func:`init_variables`' draws for one network (a head to train)."""
+    return _init_module(net, np.random.default_rng(seed))
 
 
 def _check_tag(path: str, cfg: PipelineConfig) -> None:

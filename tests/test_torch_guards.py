@@ -42,7 +42,10 @@ def test_no_jax_imports_in_port():
         "roreg_tpu_torch/data/synthetic.py", "roreg_tpu_torch/data/visualize.py",
         "roreg_tpu_torch/eval/benchmark.py", "roreg_tpu_torch/eval/posegraph.py",
         "roreg_tpu_torch/utils/profiling.py", "roreg_tpu_torch/cli/demo.py", "roreg_tpu_torch/cli/test.py",
-        "roreg_tpu_torch/cli/testset.py",
+        "roreg_tpu_torch/cli/testset.py", "roreg_tpu_torch/dist/eval.py", "roreg_tpu_torch/train/losses.py",
+        "roreg_tpu_torch/train/data.py", "roreg_tpu_torch/train/trainer.py", "roreg_tpu_torch/train/validators.py",
+        "roreg_tpu_torch/train/selfrun.py", "roreg_tpu_torch/train/checkpoints.py",
+        "roreg_tpu_torch/cli/train.py", "roreg_tpu_torch/cli/trainset.py", "roreg_tpu_torch/utils/metrics_log.py",
     } <= scanned
     bad = []
     for path in _port_sources():
