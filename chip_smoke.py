@@ -5,9 +5,10 @@
 Phases, each ending in one flushed progress line on stderr:
 
 1. device: the card's name and power limit (``nvidia-smi``);
-2. build: ``g++`` for the host voxel hash and ``nvcc`` for the six CUDA
-   kernels (gather_conv, block_gather, halo_conv, up_conv, skip_concat,
-   cell_dense), all started together, from the sources in this checkout;
+2. build: ``g++`` for the host voxel hash and ``nvcc`` for the CUDA
+   sources (gather_conv, gather_conv_bwd with its dgrad and wgrad kernels,
+   block_gather, halo_conv, up_conv, skip_concat, cell_dense), all started
+   together, from the sources in this checkout;
 3. kernel: the gather-conv kernel against its plain PyTorch version on the
    tables of one full-capacity host pyramid of the synthetic cloud, at the
    11 ResUNetBN2C conv shapes, both as one rotation's table and as the main
@@ -15,6 +16,12 @@ Phases, each ending in one flushed progress line on stderr:
    be bit-equal to the first, CUDA-event times, the card's bound and the
    kernel's launch shape (rows per thread block, channels per step, ring
    slots, cluster split) for each;
+3d. backward kernels: the gather conv's dgrad and wgrad against their
+   plain versions (autograd through gather_conv_plain) at the 20 conv
+   shapes of one full-width training forward (the tables of one
+   full-capacity host pyramid of cloud 0, one cloud as training runs it),
+   with a second launch's gap (f32 atomics: run-to-run nondeterministic),
+   max and mean gaps, CUDA-event times and the card's bound for each;
 3b. block kernels: block_gather (bit-exact), halo_conv (1e-3), up_conv
    (1e-3), skip_concat (bit-exact) and cell_dense (1e-5 relative, with the
    level-0 cell mask the main path passes) against their plain versions at
@@ -82,7 +89,24 @@ Phases, each ending in one flushed progress line on stderr:
    kernels, every loss must be finite, and each head's best checkpoint must
    load into a ``PipelineConfig()`` pipeline that registers the smoke pair
    to a proper rigid motion. Steps/s, peak memory and the describes'
-   launches are printed per head.
+   launches are printed per head;
+11. backbone training: ``cli.train --component backbone`` for
+   ``BACKBONE_STEPS`` steps at full width (the CLI's ``PipelineConfig``,
+   capacities 32768/16384/8192/4096, conv1 kernel 7, bf16, 2 synthetic
+   scenes of 3 clouds of 20000 points, 1024 pairs) in a temporary
+   directory: each step's 2 forwards and 1 backward must launch gather_conv
+   40 times, dgrad 40 and wgrad 40 and nothing else, every loss must be
+   finite; then 12 steps on one fixed batch must lower the loss; the saved
+   backbone must load into ``PipelineConfig()`` (block engine) and
+   ``PipelineConfig(engine="gather")``, each of which must register the
+   smoke pair to a proper rigid motion. Steps/s with the host's batch
+   builds apart, and peak memory; then ``PROFILED_STEPS`` more steps on the
+   overfit's batch under ``torch.profiler``: device time per step of each
+   conv kernel and of everything else, and the device busy share;
+11b. zoo: each ``RESUNET_VARIANTS`` and ``SIMPLENET_VARIANTS`` entry's
+   gather-engine forward on one full-width pyramid of cloud 0, kernels
+   against plain versions, at phase 3c's tolerance; each forward must
+   launch gather_conv once per gather conv.
 
 Each slice checks the descriptor shapes and norms, the launch counts of
 every kernel (zeroed just before the run: each kernel of the path ran
@@ -111,6 +135,7 @@ import torch
 
 # Hopper H100 SXM peaks (NVIDIA data sheet, dense, 700 W)
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12  # the tensor cores' rate for f32 (here with bf16) operands
 PEAK_F32_FLOPS = 67e12  # FFMA outside the tensor cores
 PEAK_BYTES = 3.35e12
 # bf16 products are exact in f32, so kernel and plain version differ only by
@@ -201,6 +226,14 @@ QUALITY_KEYNUM = 1024
 PAIR_BATCH_T_TOL = 1e-4
 # phase 10: steps a head trains
 TRAIN_STEPS = 20
+# phase 11: backbone training steps at full width, and the overfit's
+BACKBONE_STEPS = 30
+OVERFIT_STEPS = 12
+PROFILED_STEPS = 3
+# phase 3d: dgrad and wgrad against autograd through the plain version;
+# f32 sums in another order (dgrad: <= 27 x Cout terms with atomic adds;
+# wgrad: <= M terms), outputs of magnitude <~ 100 at these shapes
+BWD_ATOL = 1e-2
 
 # the run ends itself (exit code 1, tracebacks on stderr) after this long;
 # it must end within 1200 s, builds included
@@ -249,12 +282,15 @@ def _kernels() -> dict:
     """name -> wrapper of every CUDA kernel of the port."""
     from roreg_tpu_torch.kernels.block_gather import block_gather_kernel
     from roreg_tpu_torch.kernels.cell_dense import cell_dense_kernel
-    from roreg_tpu_torch.kernels.gather_conv import gather_conv_kernel
+    from roreg_tpu_torch.kernels.gather_conv import (
+        gather_conv_dgrad_kernel, gather_conv_kernel, gather_conv_wgrad_kernel,
+    )
     from roreg_tpu_torch.kernels.halo_conv import halo_conv_kernel
     from roreg_tpu_torch.kernels.skip_concat import skip_concat_kernel
     from roreg_tpu_torch.kernels.up_conv import up_conv_kernel
 
-    return {"gather_conv": gather_conv_kernel, "block_gather": block_gather_kernel,
+    return {"gather_conv": gather_conv_kernel, "gather_conv_dgrad": gather_conv_dgrad_kernel,
+            "gather_conv_wgrad": gather_conv_wgrad_kernel, "block_gather": block_gather_kernel,
             "halo_conv": halo_conv_kernel, "up_conv": up_conv_kernel,
             "skip_concat": skip_concat_kernel, "cell_dense": cell_dense_kernel}
 
@@ -263,7 +299,10 @@ def phase_build() -> dict:
     from roreg_tpu_torch.native import lib as native_lib
 
     builds = {"g++ voxelhash": native_lib.build}
-    builds.update({f"nvcc {name}": k.build for name, k in _kernels().items()})
+    sources = {}
+    for name, k in _kernels().items():  # one build per source file
+        sources.setdefault(k.source, (name, k))
+    builds.update({f"nvcc {k.source}": k.build for _, k in sources.values()})
     with ThreadPoolExecutor(max_workers=len(builds)) as pool:
         futures = {name: pool.submit(fn, True) for name, fn in builds.items()}
         secs = {name: f.result() for name, f in futures.items()}
@@ -348,6 +387,74 @@ def phase_kernel(cfg, pair: dict, seed: int, device: str = "cuda") -> tuple[dict
     progress(f"phase 3 kernel: 11 shapes within {KERNEL_ATOL}; one chunk's 20 convs: kernel "
              f"{total['ms']:.2f} ms (warm L2 {total['warm_l2_ms']:.2f} ms), plain {total['plain_ms']:.2f} ms, bound {total['bound_ms']:.3f} ms")
     return total, rows
+
+
+def phase_bwd_kernels(cfg, pair: dict, seed: int, device: str = "cuda") -> tuple[dict, list]:
+    """Phase 3d: dgrad and wgrad against their plain versions at the 20
+    conv shapes of one full-width training forward (one cloud's host
+    pyramid). Returns (totals per kernel over the 20 convs, rows)."""
+    from roreg_tpu_torch.kernels.gather_conv import (
+        bwd_work, gather_conv_dgrad_kernel, gather_conv_dgrad_plain,
+        gather_conv_wgrad_kernel, gather_conv_wgrad_plain,
+    )
+    from roreg_tpu_torch.native.pyramid import alloc_pyramid_buffers, fill_pyramid_host
+
+    dev = torch.device(device)
+    host = alloc_pyramid_buffers(cfg.capacities, cfg.conv1_kernel_size)
+    fill_pyramid_host(pair["points0"], cfg.voxel_size, host, conv1_kernel_size=cfg.conv1_kernel_size)
+    caps = cfg.capacities
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    l2_flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
+    keys = ("ms", "warm_l2_ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms")
+    totals = {n: {**dict.fromkeys(keys, 0.0), "err": 0.0, "mean_err": 0.0, "rerun_gap": 0.0}
+              for n in ("gather_conv_dgrad", "gather_conv_wgrad")}
+    rows = []
+    for (kind, lvl), cin, cout, uses in CONV_SHAPES:
+        n_src = caps[lvl if kind in ("same", "down") else lvl + 1]
+        nbr = torch.from_numpy(getattr(host, kind)[lvl].astype(np.int32)).to(dev)
+        w = (torch.randn(27, cin, cout, generator=gen, device=dev) * (2.0 / (27 * cin)) ** 0.5).bfloat16()
+        feats = torch.randn(n_src, cin, generator=gen, device=dev).bfloat16()
+        dy = torch.randn(nbr.shape[0], cout, generator=gen, device=dev)
+        dy[~(nbr >= 0).any(1)] = 0.0  # pad rows are masked in the forward: no gradient
+        for name, kernel, plain in (("gather_conv_dgrad", gather_conv_dgrad_kernel, gather_conv_dgrad_plain),
+                                    ("gather_conv_wgrad", gather_conv_wgrad_kernel, gather_conv_wgrad_plain)):
+            out_k = kernel(feats, nbr, w, dy)
+            again = kernel(feats, nbr, w, dy)
+            out_p = plain(feats, nbr, w, dy)
+            torch.cuda.synchronize()
+            diff = (out_k - out_p).abs()
+            err, mean_err = float(diff.max()), float(diff.mean())
+            rerun = float((out_k - again).abs().max())
+            label = f"{kind}[{lvl}] {cin}->{cout} M={nbr.shape[0]} N={n_src}"
+            if not np.isfinite(err) or err > BWD_ATOL:
+                raise AssertionError(f"{name} {label}: max abs err {err} > {BWD_ATOL}")
+            del again, out_p
+            row = {"kernel": name, "shape": label, "uses": uses, "max_abs_err": err, "mean_abs_err": mean_err,
+                   "rerun_gap": rerun,
+                   "ms": cuda_ms(lambda: kernel(feats, nbr, w, dy), reps=20, flush=l2_flush),
+                   "warm_l2_ms": cuda_ms(lambda: kernel(feats, nbr, w, dy), reps=20),
+                   "plain_ms": cuda_ms(lambda: plain(feats, nbr, w, dy), reps=3, warmup=1, flush=l2_flush)}
+            work = bwd_work(name.rsplit("_", 1)[1], nbr, n_src, cin, cout)
+            # bound at the tensor cores' TF32 rate: dY stays f32, its partner
+            # (W or X) is bf16; the SIMT kernels' own ceiling is PEAK_F32_FLOPS
+            row.update(_bound(*work, PEAK_TF32_FLOPS))
+            row["tflops"] = work[0] / row["ms"] / 1e9
+            t = totals[name]
+            for k in keys:
+                t[k] += uses * row[k]
+            t["err"], t["rerun_gap"] = max(t["err"], err), max(t["rerun_gap"], rerun)
+            t["mean_err"] = max(t["mean_err"], mean_err)
+            rows.append(row)
+            progress(f"  {name:17s} {label:40s} err max {err:.2e} mean {mean_err:.2e} (rerun gap {rerun:.1e}) "
+                     f"kernel {row['ms']:.3f} ms (warm L2 {row['warm_l2_ms']:.3f}) plain {row['plain_ms']:.3f} ms "
+                     f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), {row['tflops']:.2f} TFLOP/s")
+    for t in totals.values():
+        t["bound_by"] = "operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes"
+    progress("phase 3d backward kernels, one full-width forward's 20 convs: " + "; ".join(
+        f"{n} kernel {t['ms']:.2f} ms, plain {t['plain_ms']:.2f} ms, bound {t['bound_ms']:.3f} ms "
+        f"({t['bound_by']}), max err {t['err']:.1e}, mean err {t['mean_err']:.1e}, rerun gap {t['rerun_gap']:.1e} "
+        f"(tol {BWD_ATOL})" for n, t in totals.items()))
+    return totals, rows
 
 
 def _bound(ops: int, nbytes: int, peak_flops: float = PEAK_BF16_FLOPS) -> dict:
@@ -1122,6 +1229,190 @@ def phase_train(pair: dict, seed: int, device: str = "cuda") -> dict:
     return out
 
 
+def _check_rigid(T: torch.Tensor, what: str) -> None:
+    T = T.cpu().double()
+    R = T[:3, :3]
+    if not (bool(torch.isfinite(T).all()) and torch.allclose(R @ R.T, torch.eye(3, dtype=R.dtype), atol=1e-4)
+            and abs(float(torch.linalg.det(R)) - 1) < 1e-4):
+        raise AssertionError(f"{what}: transform {T} is not a proper rigid motion")
+
+
+def phase_backbone_train(pair: dict, seed: int, device: str = "cuda") -> dict:
+    """Phase 11 (see the module docstring)."""
+    import contextlib
+    import tempfile
+
+    from roreg_tpu_torch.cli import train as cli_train
+    from roreg_tpu_torch.pipeline.config import PipelineConfig
+    from roreg_tpu_torch.pipeline.registration import RegistrationPipeline
+    from roreg_tpu_torch.train.backbone import backbone_pair_batches, make_backbone_train_step
+    from roreg_tpu_torch.train.checkpoints import load_pipeline_variables
+    from roreg_tpu_torch.weights import init_variables
+
+    kernels = _kernels()
+    per_step = {"gather_conv": 40, "gather_conv_dgrad": 40, "gather_conv_wgrad": 40}
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="roreg_backbone_") as tmp:
+        args = cli_train.get_parser().parse_args([
+            "--component", "backbone", "--steps", str(BACKBONE_STEPS), "--synthetic_scenes", "2",
+            "--data_root", os.path.join(tmp, "data"), "--checkpoint_dir", os.path.join(tmp, "ckpt"),
+            "--device", device, "--seed", str(seed)])
+        cli_train.build_scenes(args)  # the scenes are written before the timed run
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels.values():
+            k.launches = 0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            res = cli_train.train_backbone(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {n: k.launches for n, k in kernels.items()}
+        peak = torch.cuda.max_memory_allocated()
+        expected = {n: per_step.get(n, 0) * BACKBONE_STEPS for n in kernels}
+        if launches != expected:
+            raise AssertionError(f"phase 11: launches {launches}, expected {expected}")
+        losses = res["losses"]
+        if len(losses) != BACKBONE_STEPS or not np.isfinite(losses).all():
+            raise AssertionError(f"phase 11: losses {losses}")
+        out["cli"] = {"steps": BACKBONE_STEPS, "wall_s": wall, "step_s": res["step_s"], "host_s": res["host_s"],
+                      "steps_per_sec": BACKBONE_STEPS / res["step_s"], "peak_mem_gib": peak / 2**30,
+                      "first_loss": losses[0], "last_loss": losses[-1], "launches": launches}
+        progress(f"phase 11 backbone training: {BACKBONE_STEPS} steps of cli.train --component backbone at full "
+                 f"width in {wall:.1f} s: steps {res['step_s']:.2f} s ({out['cli']['steps_per_sec']:.2f} steps/s, "
+                 f"device work and its launches), host batch builds {res['host_s']:.2f} s "
+                 f"({res['host_s'] / (BACKBONE_STEPS + 1):.3f} s a batch: 2 pyramids + mutual NN), peak memory "
+                 f"{peak / 2**30:.2f} GiB, loss {losses[0]:.4f} -> {losses[-1]:.4f}; launches {launches} "
+                 f"= {per_step} x {BACKBONE_STEPS} steps")
+
+        cfg = PipelineConfig(voxel_size=args.voxel_size, group_size=args.group_size,
+                             num_keypoints=cli_train.SCENE["num_keypoints"])
+        scenes = cli_train.build_scenes(args)
+        batch = next(backbone_pair_batches(scenes, cfg, np.random.default_rng(seed + 7)))
+        init_fn, step_fn = make_backbone_train_step(cfg, lr=3e-2, device=device)
+        state = init_fn(seed=seed)
+        fit = [float(step_fn(state, batch)["loss"]) for _ in range(OVERFIT_STEPS)]
+        if not (np.isfinite(fit).all() and np.mean(fit[-3:]) < np.mean(fit[:3])):
+            raise AssertionError(f"phase 11: the overfit did not lower the loss: {fit}")
+        out["overfit"] = fit
+        progress(f"phase 11 overfit: {OVERFIT_STEPS} steps on one batch ({int(batch['pair_mask'].sum())} pairs), "
+                 f"loss {fit[0]:.4f} -> {fit[-1]:.4f}")
+        out["profile"] = _profile_steps(lambda: float(step_fn(state, batch)["loss"]))
+        del state
+
+        for engine in ("block", "gather"):
+            pcfg = PipelineConfig(engine=engine)
+            variables = init_variables(pcfg, seed)
+            loaded = load_pipeline_variables(os.path.join(tmp, "ckpt"), variables, pcfg)
+            if loaded != ["backbone"]:
+                raise AssertionError(f"phase 11: the trained backbone did not load ({loaded})")
+            pipe = RegistrationPipeline(pcfg, variables, device=device)
+            T = pipe.register_pair(pair["points0"], None, pair["keys0"], pair["points1"], None,
+                                   pair["keys1"], generator=torch.Generator().manual_seed(seed))["transform"]
+            del pipe
+            _check_rigid(T, f"phase 11 {engine} engine with the trained backbone")
+        progress("phase 11: the trained backbone loaded into PipelineConfig() (block engine) and "
+                 "PipelineConfig(engine='gather'), each registered the smoke pair to a rigid motion")
+    return out
+
+
+def _profile_steps(step) -> dict:
+    """Device time of ``PROFILED_STEPS`` warm backbone steps under
+    ``torch.profiler``, per step: the three conv kernels by name, every
+    other kernel and copy together (and the largest of them by name), and
+    the device busy share of the steps' wall span."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from roreg_tpu_torch.profile_pair import _union_us
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with record_function("backbone_steps"):
+            for _ in range(PROFILED_STEPS):
+                step()  # reads the loss: each step ends synchronised
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    span = next(e for e in events if e.name == "backbone_steps" and e.device_type != cuda).time_range
+    device = [e for e in events if e.device_type == cuda and e.name != "backbone_steps"]
+    if not device:
+        raise AssertionError("phase 11: the profiler recorded no device activity")
+    by_name: dict[str, float] = {}
+    for e in device:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / PROFILED_STEPS
+    ours = {"gather_conv": "gather_conv_kernel", "gather_conv_dgrad": "dgrad_kernel",
+            "gather_conv_wgrad": "wgrad_kernel"}
+    kernel_ms = {k: sum(v for n, v in by_name.items() if tag in n) for k, tag in ours.items()}
+    rest = {n: v for n, v in by_name.items() if not any(tag in n for tag in ours.values())}
+    busy_ms = _union_us([(e.time_range.start, e.time_range.end) for e in device]) / 1e3 / PROFILED_STEPS
+    res = {"steps": PROFILED_STEPS, "wall_ms": span.elapsed_us() / 1e3 / PROFILED_STEPS,
+           "device_busy_ms": busy_ms, "kernel_ms": kernel_ms, "other_ms": sum(rest.values()),
+           "top_other": [{"name": n[:120], "ms": v} for n, v in sorted(rest.items(), key=lambda kv: -kv[1])[:8]]}
+    res["device_busy_share"] = busy_ms / res["wall_ms"]
+    progress(f"phase 11 profile, {PROFILED_STEPS} warm steps on that batch, per step: wall {res['wall_ms']:.2f} ms, "
+             f"device busy {busy_ms:.2f} ms ({100 * res['device_busy_share']:.1f} %); "
+             + ", ".join(f"{k} {v:.2f} ms" for k, v in kernel_ms.items())
+             + f"; every other kernel and copy {res['other_ms']:.2f} ms, largest: "
+             + "; ".join(f"{t['ms']:.2f} ms {t['name'][:70]}" for t in res["top_other"][:5]))
+    return res
+
+
+def phase_zoo(pair: dict, seed: int, device: str = "cuda") -> dict:
+    """Phase 11b (see the module docstring)."""
+    import roreg_tpu_torch.sparse.conv as sconv
+    from roreg_tpu_torch.kernels.gather_conv import gather_conv_plain
+    from roreg_tpu_torch.native.pyramid import alloc_pyramid_buffers, fill_pyramid_host
+    from roreg_tpu_torch.pipeline.config import PipelineConfig
+    from roreg_tpu_torch.pipeline.extractor import make_backbone, upload_pyramid
+    from roreg_tpu_torch.sparse.resunet import RESUNET_VARIANTS, SIMPLENET_VARIANTS
+    from roreg_tpu_torch.weights import init_module_variables, load_variables
+
+    dev = torch.device(device)
+    base = PipelineConfig(engine="gather")
+    host = alloc_pyramid_buffers(base.capacities, base.conv1_kernel_size)
+    fill_pyramid_host(pair["points0"], base.voxel_size, host, conv1_kernel_size=base.conv1_kernel_size)
+    pyr = upload_pyramid(host, dev)
+    mask = pyr.masks[0]
+    kernels = _kernels()
+    out = {}
+    for name in list(RESUNET_VARIANTS) + list(SIMPLENET_VARIANTS):
+        net = make_backbone(dataclasses.replace(base, backbone_variant=name))
+        load_variables(net, init_module_variables(net, seed))
+        net.to(dev).eval()
+        convs = 20 if name in RESUNET_VARIANTS else 2 * SIMPLENET_VARIANTS[name][3] - 1
+        for k in kernels.values():
+            k.launches = 0
+        with torch.inference_mode():
+            got = net(pyr)
+            torch.cuda.synchronize()
+            launches = {n: k.launches for n, k in kernels.items() if k.launches}
+            real = sconv.gather_conv
+            sconv.gather_conv = gather_conv_plain
+            try:
+                want = net(pyr)
+            finally:
+                sconv.gather_conv = real
+        if launches != {"gather_conv": convs}:
+            raise AssertionError(f"phase 11b {name}: launches {launches}, expected {convs} gather_conv")
+        d = (got - want).abs()[mask]
+        norms = torch.linalg.norm(got[mask], dim=-1)
+        # a valid row is unit-norm, or zero where every feature before the
+        # final layer (zero bias at init) is zero, in both versions
+        err = {"max": float(d.max()), "mean": float(d.mean()),
+               "norm_err": float(torch.where(norms > 0, (norms - 1).abs(), torch.zeros_like(norms)).max()),
+               "zero_rows": int((norms == 0).sum()), "pad_rows_nonzero": int(got[~mask].any(-1).sum())}
+        if (not bool(torch.isfinite(got).all()) or err["max"] > REFERENCE_ATOL or err["mean"] > REFERENCE_MEAN_ATOL
+                or err["norm_err"] > 1e-3 or err["pad_rows_nonzero"]):
+            raise AssertionError(f"phase 11b {name}: kernels against plain versions {err}")
+        out[name] = {"err": err, "launches": launches}
+        del net
+    progress(f"phase 11b zoo: {len(out)} variants' full-width gather-engine forwards, kernels against plain "
+             f"versions: max err {max(v['err']['max'] for v in out.values()):.1e}, mean err "
+             f"{max(v['err']['mean'] for v in out.values()):.1e} (tol max {REFERENCE_ATOL}, mean "
+             f"{REFERENCE_MEAN_ATOL}); zero rows per variant "
+             f"{ {n: v['err']['zero_rows'] for n, v in out.items() if v['err']['zero_rows']} }; gather_conv "
+             f"launches = gather convs per variant")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1146,6 +1437,8 @@ def main() -> int:
         pair = synthetic_pair(args.seed, points_per_cloud=20000, num_keypoints=block_cfg.num_keypoints)
         total, rows = phase_kernel(gather_cfg, pair, args.seed)
         report["kernel_shapes"] = rows
+        bwd_totals, bwd_rows = phase_bwd_kernels(gather_cfg, pair, args.seed)
+        report["bwd_kernel_shapes"] = bwd_rows
         block_totals, block_rows = phase_block_kernels(block_cfg, pair, args.seed)
         report["block_kernel_shapes"] = block_rows
         report["reference"] = {c.engine: phase_reference(c, args.seed) for c in (gather_cfg, block_cfg)}
@@ -1160,6 +1453,8 @@ def main() -> int:
         report["bench"] = phase_bench()
         report["cli"] = phase_cli()
         report["train"] = phase_train(pair, args.seed)
+        report["backbone_train"] = phase_backbone_train(pair, args.seed)
+        report["zoo"] = phase_zoo(pair, args.seed)
         report["total_s"] = time.perf_counter() - T0
         entries = [{
             "name": "gather_conv",
@@ -1176,6 +1471,18 @@ def main() -> int:
             "library": "none: no PyTorch call computes a gathered sum of per-offset GEMMs",
             "unit": "the 20 convs of one rotation chunk's batched forward (gather engine)",
         }]
+        for name in ("gather_conv_dgrad", "gather_conv_wgrad"):
+            t = bwd_totals[name]
+            entries.append({
+                "name": name, "route": "cuda", "source": "roreg_tpu_torch/csrc/gather_conv_bwd.cu",
+                "replaces": "roreg_tpu/sparse/window_conv.py:140",
+                "launches": report["backbone_train"]["cli"]["launches"][name],
+                "max_abs_err": t["err"], "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": None,
+                "library": "none: no PyTorch call computes the gradient of a gathered sum of per-offset GEMMs",
+                "unit": "the 20 convs of one full-width training forward's backward (one cloud, gather engine)",
+                "rerun_gap": t["rerun_gap"],
+            })
         for name, replaces, unit in (
             ("block_gather", "scripts/experiment_pallas_gather.py:67",
              "the 4 gathers of one rotation chunk's batched forward"),

@@ -4,9 +4,10 @@
         --data_root ./data/origin_data --checkpoint_dir ./checkpoints
 
 Components: GF (descriptor), RD (detector), RM (matcher), ET (local
-rotation); the JAX package's flags, plus ``--device`` (CUDA unless
-``cpu``). Training scenes are synthetic (``make_synthetic_scene``, 3 clouds
-of 20000 points and 1024 keypoints each, written under
+rotation) and the FCGF backbone; the JAX package's flags, plus
+``--device`` (CUDA unless ``cpu``). Training scenes are synthetic
+(``make_synthetic_scene``, 3 clouds of 20000 points and 1024 keypoints
+each, written under
 ``<data_root>/synthetic_train/scene<i>`` unless present there). The
 pipeline behind the features carries seeded random weights, with each
 network found in ``--checkpoint_dir`` loaded over them (``<comp>.npz`` or
@@ -16,9 +17,17 @@ Checkpoints go to ``<checkpoint_dir>/<COMP>/model`` and ``model_best`` in
 the layout ``RegistrationPipeline`` loads (``train/checkpoints.py``): name
 a directory outside the source tree.
 
-Not ported: ``--component backbone`` (ROADMAP A10) and ``--n_devices``
-above 1 (a data-parallel mesh, ROADMAP A7) raise ``NotImplementedError``;
-``--n_devices`` 0 and 1 run on the one device.
+``--component backbone`` trains the backbone of ``PipelineConfig(voxel,
+group size, 1024 keypoints)`` (ResUNetBN2C, the gather engine's network,
+bf16 convs) with the hardest-contrastive loss and SGD (``train/backbone.py``)
+for ``--steps`` (default 20000) steps on fragment pairs of the scenes
+(``seed + 1`` draws them), printing every 200 steps, and writes its
+variables to ``<checkpoint_dir>/backbone_variables/backbone.npz``, which
+``train.checkpoints.load_pipeline_variables`` loads into either engine.
+
+Not ported: ``--n_devices`` above 1 (a data-parallel mesh, ROADMAP A7)
+raises ``NotImplementedError``; ``--n_devices`` 0 and 1 run on the one
+device.
 """
 
 from __future__ import annotations
@@ -26,6 +35,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import time
 
 import numpy as np
 
@@ -33,14 +43,15 @@ from roreg_tpu_torch.data.dataset import ThreeDMatchDataset
 from roreg_tpu_torch.data.synthetic import make_synthetic_scene
 from roreg_tpu_torch.pipeline.config import PipelineConfig
 from roreg_tpu_torch.pipeline.registration import RegistrationPipeline
-from roreg_tpu_torch.train.checkpoints import load_pipeline_variables
+from roreg_tpu_torch.train.backbone import backbone_pair_batches, make_backbone_train_step
+from roreg_tpu_torch.train.checkpoints import load_pipeline_variables, save_variables
 from roreg_tpu_torch.train.data import RotatedFeatureCache, gf_et_batches, rd_batches, rm_batches
 from roreg_tpu_torch.train.selfrun import build_rd_match_bank
 from roreg_tpu_torch.train.trainer import TrainConfig, Trainer
 from roreg_tpu_torch.train.validators import make_val_fn
-from roreg_tpu_torch.weights import init_variables
+from roreg_tpu_torch.weights import export_variables, init_variables
 
-__all__ = ["get_parser", "build_scenes", "train_pipeline", "prepare", "main", "SCENE"]
+__all__ = ["get_parser", "build_scenes", "train_pipeline", "prepare", "train_backbone", "main", "SCENE"]
 
 # the training scenes' size (the JAX package's cli.train)
 SCENE = dict(num_clouds=3, points_per_cloud=20000, num_keypoints=1024)
@@ -104,12 +115,7 @@ def prepare(args) -> tuple[Trainer, dict]:
     Returns the trainer and ``{"pipeline", "scenes", "cache"}`` (``cache``
     the GF/ET feature cache, else None)."""
     comp = args.component.lower()
-    if comp == "backbone":
-        raise NotImplementedError("--component backbone (FCGF backbone training) is not ported: "
-                                  "ROADMAP.md queue A, item A10")
-    if args.n_devices > 1:
-        raise NotImplementedError(f"--n_devices {args.n_devices} (a data-parallel mesh) is not ported: "
-                                  "ROADMAP.md queue A, item A7; 0 or 1 runs on the one device")
+    _check_devices(args)
     pipe, variables = train_pipeline(args)
     scenes = build_scenes(args)
     rng = np.random.default_rng(args.seed + 1)
@@ -146,8 +152,53 @@ def prepare(args) -> tuple[Trainer, dict]:
     return trainer, {"pipeline": pipe, "scenes": scenes, "cache": cache}
 
 
+def _check_devices(args) -> None:
+    if args.n_devices > 1:
+        raise NotImplementedError(f"--n_devices {args.n_devices} (a data-parallel mesh) is not ported: "
+                                  "ROADMAP.md queue A, item A7; 0 or 1 runs on the one device")
+
+
+def train_backbone(args) -> dict:
+    """``--component backbone``: the JAX package's loop. The first batch
+    is drawn before the loop, each step trains on the batch in hand and
+    then draws the next. Returns ``final_step``, the checkpoint's directory,
+    every step's loss, and the seconds spent building batches on the host
+    (pyramids and pairing) and in the steps (synchronised)."""
+    _check_devices(args)
+    cfg = PipelineConfig(voxel_size=args.voxel_size, group_size=args.group_size,
+                         num_keypoints=SCENE["num_keypoints"])
+    scenes = build_scenes(args)
+    rng = np.random.default_rng(args.seed + 1)
+    init_fn, step_fn = make_backbone_train_step(cfg, device=args.device)
+    it = backbone_pair_batches(scenes, cfg, rng)
+    t0 = time.perf_counter()
+    batch = next(it)
+    host_s = time.perf_counter() - t0
+    state = init_fn(seed=args.seed)
+    steps = args.steps or 20000
+    losses, step_s = [], 0.0
+    for i in range(steps):
+        t0 = time.perf_counter()
+        m = step_fn(state, batch)
+        losses.append(float(m["loss"]))  # synchronises with the device
+        step_s += time.perf_counter() - t0
+        if (i + 1) % 200 == 0:
+            print(f"step {i + 1} loss {losses[-1]:.4f} pos {float(m['pos_dist']):.3f} "
+                  f"neg {float(m['neg_dist']):.3f}")
+        t0 = time.perf_counter()
+        batch = next(it)
+        host_s += time.perf_counter() - t0
+    path = os.path.join(args.checkpoint_dir, "backbone_variables")
+    save_variables(path, "backbone", export_variables(state.net), cfg.group_size)
+    print(json.dumps({"final_step": steps}))
+    return {"final_step": steps, "checkpoint": path, "losses": losses, "host_s": host_s,
+            "step_s": step_s}
+
+
 def main(argv=None):
     args = get_parser().parse_args(argv)
+    if args.component == "backbone":
+        return train_backbone(args)
     trainer, _ = prepare(args)
     result = trainer.run(steps=args.steps)
     print(json.dumps({k: str(v) for k, v in result.items()}))

@@ -8,8 +8,13 @@ the TPU kernel ``roreg_tpu/sparse/window_conv.py`` ``window_gather_conv``.
 
 :func:`gather_conv` runs the plain PyTorch version for tensors on the CPU
 and the CUDA kernel of ``csrc/gather_conv.cu`` for tensors on the GPU; on a
-GPU it launches the kernel or raises. The kernel is built with ``nvcc`` into
-the port's build directory at first use and bound with ``ctypes``.
+GPU it launches the kernel or raises. Where a gradient is needed it goes
+through :class:`GatherConvFn`, whose backward runs the two kernels of
+``csrc/gather_conv_bwd.cu`` (dgrad and wgrad) on the GPU and their plain
+versions (autograd through :func:`gather_conv_plain`) on the CPU; the
+gathered ``(M, K, Cin)`` matrix is never saved. The kernels are built with
+``nvcc`` into the port's build directory at first use and bound with
+``ctypes``.
 """
 
 from __future__ import annotations
@@ -21,7 +26,20 @@ import torch
 from roreg_tpu_torch.build import CudaKernel
 from roreg_tpu_torch.kernels.halo_conv import pack_weights
 
-__all__ = ["gather_conv", "gather_conv_plain", "gather_conv_kernel", "conv_work"]
+__all__ = [
+    "gather_conv",
+    "gather_conv_plain",
+    "gather_conv_kernel",
+    "conv_work",
+    "GatherConvFn",
+    "gather_conv_dgrad",
+    "gather_conv_wgrad",
+    "gather_conv_dgrad_plain",
+    "gather_conv_wgrad_plain",
+    "gather_conv_dgrad_kernel",
+    "gather_conv_wgrad_kernel",
+    "bwd_work",
+]
 
 
 def gather_conv_plain(
@@ -126,13 +144,179 @@ class GatherConvKernel(CudaKernel):
 gather_conv_kernel = GatherConvKernel()
 
 
+def _padded_forward(feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """The kernel on CUDA tensors at any width it can be padded to: Cin is
+    zero-padded to a multiple of 32 and Cout to the next width of
+    ``GATHER_COUTS`` (the extra columns are cut off the output), and a
+    table of more than ``GATHER_MAX_K`` offsets runs as launches of at most
+    that many offsets whose outputs are summed (exact up to the order of
+    the f32 sums)."""
+    k = nbr.shape[1]
+    if k > GATHER_MAX_K:
+        out = None
+        for s in range(0, k, GATHER_MAX_K):
+            part = _padded_forward(feats, nbr[:, s:s + GATHER_MAX_K].contiguous(),
+                                   weights[s:s + GATHER_MAX_K].contiguous())
+            out = part if out is None else out.add_(part)
+        return out
+    cin, cout = feats.shape[1], weights.shape[2]
+    cin_p = -(-cin // 32) * 32
+    cout_p = next((c for c in GATHER_COUTS if c >= cout), cout)
+    if cin_p != cin:
+        feats = torch.nn.functional.pad(feats, (0, cin_p - cin))
+        weights = torch.nn.functional.pad(weights, (0, 0, 0, cin_p - cin))
+    if cout_p != cout:
+        weights = torch.nn.functional.pad(weights, (0, cout_p - cout))
+    out = gather_conv_kernel(feats, nbr, weights.contiguous())
+    return out if cout_p == cout else out[:, :cout].contiguous()
+
+
+def _forward(feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    if feats.device.type == "cpu":
+        return gather_conv_plain(feats, nbr, weights)
+    return _padded_forward(feats, nbr, weights)
+
+
+# ---- the gradient ----
+
+
+def gather_conv_dgrad_plain(
+    feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor, dy: torch.Tensor
+) -> torch.Tensor:
+    """The plain version of dgrad, autograd through :func:`gather_conv_plain`:
+    ``dX[n] = sum over (m, k) with nbr[m, k] = n of dY[m] @ W_k^T`` as an
+    f32 ``(N, Cin)`` tensor, any device and float dtype."""
+    f = feats.detach().float().requires_grad_(True)
+    with torch.enable_grad():
+        y = gather_conv_plain(f, nbr, weights.detach().float())
+    (dx,) = torch.autograd.grad(y, f, dy.float())
+    return dx
+
+
+def gather_conv_wgrad_plain(
+    feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor, dy: torch.Tensor
+) -> torch.Tensor:
+    """The plain version of wgrad, autograd through :func:`gather_conv_plain`:
+    ``dW_k = sum_m X[nbr[m, k]]^T dY[m]`` over valid entries, as an f32
+    ``(K, Cin, Cout)`` tensor. ``weights`` gives the shape only."""
+    w = weights.detach().float().requires_grad_(True)
+    with torch.enable_grad():
+        y = gather_conv_plain(feats.detach().float(), nbr, w)
+    (dw,) = torch.autograd.grad(y, w, dy.float())
+    return dw
+
+
+class GatherConvBwdKernel(CudaKernel):
+    """Wrapper of one of ``csrc/gather_conv_bwd.cu``'s two kernels
+    (``which`` is "dgrad" or "wgrad"): checks its arguments, launches on
+    the current stream, and counts launches in ``launches`` (one per
+    launch, nowhere else)."""
+
+    source = "gather_conv_bwd.cu"
+
+    def __init__(self, which: str) -> None:
+        super().__init__()
+        self.which = which
+
+    def _bind(self, lib: ctypes.CDLL) -> None:
+        vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        for fn in (lib.gather_conv_dgrad, lib.gather_conv_wgrad):
+            fn.restype = ci
+            fn.argtypes = [vp, vp, vp, vp, i64, i64, ci, ci, ci, vp]
+
+    def __call__(
+        self, feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor, dy: torch.Tensor
+    ) -> torch.Tensor:
+        """feats (N, Cin) and weights (K, Cin, Cout) bf16 (dgrad reads only
+        the shape of feats, wgrad only the shape of weights), nbr (M, K)
+        int32, dy (M, Cout) f32 -> dX (N, Cin) or dW (K, Cin, Cout) f32."""
+        if feats.dtype != torch.bfloat16 or weights.dtype != torch.bfloat16:
+            raise TypeError(f"gather_conv {self.which} kernel takes bf16 feats and weights, got "
+                            f"{feats.dtype} and {weights.dtype}")
+        if nbr.dtype != torch.int32 or dy.dtype != torch.float32:
+            raise TypeError(f"gather_conv {self.which} kernel takes an int32 table and an f32 "
+                            f"gradient, got {nbr.dtype} and {dy.dtype}")
+        if feats.dim() != 2 or nbr.dim() != 2 or weights.dim() != 3 or dy.dim() != 2:
+            raise ValueError(f"gather_conv {self.which} kernel: feats (N, C), nbr (M, K), "
+                             "weights (K, C, Cout), dy (M, Cout)")
+        (n, c), (m, k), (kw, cw, cout) = feats.shape, nbr.shape, weights.shape
+        if kw != k or cw != c or tuple(dy.shape) != (m, cout):
+            raise ValueError(f"shape mismatch: feats {tuple(feats.shape)}, nbr {tuple(nbr.shape)}, "
+                             f"weights {tuple(weights.shape)}, dy {tuple(dy.shape)}")
+        if not (1 <= c <= 256 and 1 <= cout <= 256 and k >= 1):
+            raise ValueError(f"gather_conv {self.which} kernel takes 1 <= Cin, Cout <= 256 and "
+                             f"K >= 1, got Cin={c}, Cout={cout}, K={k}")
+        dev = feats.device
+        if dev.type != "cuda" or any(t.device != dev for t in (nbr, weights, dy)):
+            raise ValueError(f"gather_conv {self.which} kernel: every tensor must be on one CUDA device")
+        for name, t in (("feats", feats), ("nbr", nbr), ("weights", weights), ("dy", dy)):
+            if not t.is_contiguous():
+                raise ValueError(f"gather_conv {self.which} kernel: {name} must be contiguous")
+        lib = self._load()
+        with torch.cuda.device(dev):
+            stream = torch.cuda.current_stream(dev).cuda_stream
+            if self.which == "dgrad":
+                out = torch.empty((n, c), dtype=torch.float32, device=dev)
+                rc = lib.gather_conv_dgrad(dy.data_ptr(), nbr.data_ptr(), weights.data_ptr(),
+                                           out.data_ptr(), m, n, c, cout, k, stream)
+            else:
+                out = torch.empty((k, c, cout), dtype=torch.float32, device=dev)
+                rc = lib.gather_conv_wgrad(feats.data_ptr(), nbr.data_ptr(), dy.data_ptr(),
+                                           out.data_ptr(), m, n, c, cout, k, stream)
+        self.check_rc(f"gather_conv {self.which}", rc)
+        self.launches += 1
+        return out
+
+
+gather_conv_dgrad_kernel = GatherConvBwdKernel("dgrad")
+gather_conv_wgrad_kernel = GatherConvBwdKernel("wgrad")
+
+
+def gather_conv_dgrad(feats, nbr, weights, dy) -> torch.Tensor:
+    """dX, f32: the plain version for CPU tensors, the kernel for GPU ones."""
+    if feats.device.type == "cpu":
+        return gather_conv_dgrad_plain(feats, nbr, weights, dy)
+    return gather_conv_dgrad_kernel(feats, nbr, weights, dy.float().contiguous())
+
+
+def gather_conv_wgrad(feats, nbr, weights, dy) -> torch.Tensor:
+    """dW, f32: the plain version for CPU tensors, the kernel for GPU ones."""
+    if feats.device.type == "cpu":
+        return gather_conv_wgrad_plain(feats, nbr, weights, dy)
+    return gather_conv_wgrad_kernel(feats, nbr, weights, dy.float().contiguous())
+
+
+class GatherConvFn(torch.autograd.Function):
+    """The gather conv with its gradient: the forward of :func:`gather_conv`;
+    saves ``feats``, ``nbr`` and ``weights`` (not the gathered rows); the
+    backward runs dgrad and wgrad, each only where its input needs a
+    gradient, and returns each in its input's dtype (the one rounding of an
+    f32 sum, where the operand is bf16)."""
+
+    @staticmethod
+    def forward(ctx, feats, nbr, weights):
+        ctx.save_for_backward(feats, nbr, weights)
+        return _forward(feats, nbr, weights)
+
+    @staticmethod
+    def backward(ctx, dy):
+        feats, nbr, weights = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = gather_conv_dgrad(feats, nbr, weights, dy).to(feats.dtype)
+        if ctx.needs_input_grad[2]:
+            dw = gather_conv_wgrad(feats, nbr, weights, dy).to(weights.dtype)
+        return dx, None, dw
+
+
 def gather_conv(
     feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor
 ) -> torch.Tensor:
-    """Plain version for CPU tensors, the CUDA kernel for GPU tensors."""
-    if feats.device.type == "cpu":
-        return gather_conv_plain(feats, nbr, weights)
-    return gather_conv_kernel(feats, nbr, weights)
+    """Plain version for CPU tensors, the CUDA kernel for GPU tensors;
+    through :class:`GatherConvFn` where a gradient is needed."""
+    if torch.is_grad_enabled() and (feats.requires_grad or weights.requires_grad):
+        return GatherConvFn.apply(feats, nbr, weights)
+    return _forward(feats, nbr, weights)
 
 
 def conv_work(nbr: torch.Tensor, cin: int, cout: int) -> tuple[int, int]:
@@ -145,4 +329,23 @@ def conv_work(nbr: torch.Tensor, cin: int, cout: int) -> tuple[int, int]:
     ops = 2 * int(valid.sum()) * cin * cout
     rows_read = int(torch.unique(nbr[valid]).numel())
     nbytes = rows_read * cin * 2 + m * k * nbr.element_size() + k * cin * cout * 2 + m * cout * 4
+    return ops, nbytes
+
+
+def bwd_work(which: str, nbr: torch.Tensor, n: int, cin: int, cout: int) -> tuple[int, int]:
+    """(operations, bytes) one dgrad or wgrad call needs with this table:
+    2*Cin*Cout per valid entry (f32 dY with bf16 W or X, TF32 on the
+    tensor cores); bytes for the f32 dY rows that have
+    a valid entry, the whole table, and for dgrad the bf16 weights read
+    once and the whole f32 (N, Cin) dX written once, for wgrad each
+    referenced bf16 source row read once and the f32 (K, Cin, Cout) dW
+    written once."""
+    m, k = nbr.shape
+    valid = nbr >= 0
+    ops = 2 * int(valid.sum()) * cin * cout
+    nbytes = int(valid.any(1).sum()) * cout * 4 + m * k * nbr.element_size()
+    if which == "dgrad":
+        nbytes += k * cin * cout * 2 + n * cin * 4
+    else:
+        nbytes += int(torch.unique(nbr[valid]).numel()) * cin * 2 + k * cin * cout * 4
     return ops, nbytes

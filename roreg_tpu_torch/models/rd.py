@@ -1,8 +1,11 @@
-"""RD: the rotation-guided keypoint detector, inference.
+"""RD: the rotation-guided keypoint detector.
 
-Counterpart of ``roreg_tpu/models/rd.py`` ``RotationDetector``: an SO(3)
+Counterparts of ``roreg_tpu/models/rd.py``: ``RotationDetector``, an SO(3)
 residual conv 32 -> 64 -> 16, channel L2 norm, then the unbiased std of
-the G self-correlations as the saliency score.
+the G self-correlations as the saliency score; and the legacy
+``RotationDetectorFormer``, an SO(3) residual conv 32 -> 64 -> 1 whose G
+values feed a sigmoid MLP G -> 32 -> 1 with a batch norm (flax's rule,
+``layers.BatchNorm``). Batch norms follow the module's train/eval mode.
 """
 
 from __future__ import annotations
@@ -11,9 +14,10 @@ import torch
 from torch import nn
 
 from roreg_tpu_torch.core.group import IcosahedralGroup
+from roreg_tpu_torch.layers import BatchNorm
 from roreg_tpu_torch.models.ops import ResidualCombConv, group_correlation
 
-__all__ = ["RotationDetector"]
+__all__ = ["RotationDetector", "RotationDetectorFormer"]
 
 
 class RotationDetector(nn.Module):
@@ -30,3 +34,21 @@ class RotationDetector(nn.Module):
         x = x / torch.linalg.norm(x, dim=-1, keepdim=True).clamp_min(1e-12)
         cor = group_correlation(x, x, self.cayley)
         return cor.std(-1, unbiased=True)
+
+
+class RotationDetectorFormer(nn.Module):
+    """The reference's shipped ``RD_former`` detector: (B, G, 32) group
+    features -> (B,) sigmoid saliency scores."""
+
+    def __init__(self, group: IcosahedralGroup, in_dim: int = 32, mid_dim: int = 64):
+        super().__init__()
+        g = group.cayley.shape[0]
+        self.enc = ResidualCombConv(in_dim, mid_dim, 1, group.nei13)
+        self.score0 = nn.Linear(g, 32)
+        self.score_bn = BatchNorm(32)
+        self.score1 = nn.Linear(32, 1)
+
+    def forward(self, feats: torch.Tensor) -> torch.Tensor:
+        x = self.enc(feats)[..., 0]  # (B, G): one channel per group element
+        h = torch.relu(self.score_bn(self.score0(x)))
+        return torch.sigmoid(self.score1(h)[..., 0])

@@ -18,6 +18,7 @@ from roreg_tpu_torch.build import BUILD_DIR, compile_shared, needs_build
 __all__ = [
     "build",
     "voxelize_host",
+    "voxel_nn_host",
     "unique_snapped_host",
     "neighbor_table_host",
     "neighbor_occupancy_host",
@@ -53,6 +54,9 @@ def _load() -> ctypes.CDLL:
         i64, i32 = ctypes.c_int64, ctypes.c_int32
         lib.voxelize_hash.restype = i64
         lib.voxelize_hash.argtypes = [f32p, i64, ctypes.c_float, i32p, i32p, i32p]
+        lib.voxel_nn.restype = None
+        lib.voxel_nn.argtypes = [f32p, i32p, i64, i32p, i64, ctypes.c_float, f32p, i64,
+                                 ctypes.c_float, i32p]
         lib.unique_snapped.restype = i64
         lib.unique_snapped.argtypes = [i32p, i64, i32, i32p]
         table_args = [i32p, i64, i32p, i64, i32p, i64, i32]
@@ -83,6 +87,29 @@ def voxelize_host(points: np.ndarray, voxel_size: float):
     vc = np.empty((n, 3), np.int32)
     nv = _load().voxelize_hash(pts, n, voxel_size, to_voxel, rep, vc)
     return to_voxel, rep[:nv].copy(), vc[:nv].copy()
+
+
+def voxel_nn_host(
+    points: np.ndarray,
+    to_voxel: np.ndarray,
+    vox_coords: np.ndarray,
+    voxel_size: float,
+    queries: np.ndarray,
+    radius: float,
+) -> np.ndarray:
+    """Nearest point of ``points`` (voxelised at ``voxel_size`` as
+    ``voxelize_host`` gives ``to_voxel`` and ``vox_coords``) within
+    ``radius`` of each query, searched in the query cell's 27 neighbours:
+    (nq,) int32 point indices, -1 where none."""
+    pts = np.ascontiguousarray(points, np.float32)
+    qs = np.ascontiguousarray(queries, np.float32)
+    out = np.empty(len(qs), np.int32)
+    _load().voxel_nn(
+        pts, np.ascontiguousarray(to_voxel, np.int32), len(pts),
+        np.ascontiguousarray(vox_coords, np.int32), len(vox_coords),
+        voxel_size, qs, len(qs), radius, out,
+    )
+    return out
 
 
 def unique_snapped_host(coords: np.ndarray, stride: int) -> np.ndarray:

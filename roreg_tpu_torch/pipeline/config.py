@@ -10,7 +10,7 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
-__all__ = ["PipelineConfig", "check_supported", "rm_row_block"]
+__all__ = ["PipelineConfig", "check_supported", "check_device_supported", "rm_row_block"]
 
 
 @dataclass(frozen=True)
@@ -85,10 +85,32 @@ def check_supported(cfg: PipelineConfig) -> None:
         )
     if cfg.estimator not in ("yohoo", "yohoc"):
         raise ValueError(f"unknown estimator {cfg.estimator!r}")
-    if cfg.backbone_variant.startswith("ResUNetIN") or cfg.backbone_variant.startswith("SimpleNet"):
+    from roreg_tpu_torch.sparse.resunet import RESUNET_VARIANTS, SIMPLENET_VARIANTS
+
+    variant = cfg.backbone_variant
+    if variant not in RESUNET_VARIANTS and variant not in SIMPLENET_VARIANTS:
+        raise ValueError(f"unknown backbone variant {variant!r}")
+    # the combinations the reference cannot run either: its block engine
+    # builds batch-norm ResUNet blocks only, and its host-map gather
+    # describe builds a ResUNet
+    if cfg.engine == "block" and RESUNET_VARIANTS.get(variant, (0, 0, ""))[2] != "BN":
+        raise ValueError(f"backbone {variant!r} does not run on the block engine, whose residual "
+                         "blocks are batch-norm ResUNet blocks only (as in the reference); use "
+                         "engine='gather' for the IN ResUNets")
+    if cfg.engine == "gather" and variant in SIMPLENET_VARIANTS:
+        raise ValueError(f"backbone {variant!r}: the host-map gather describe runs the ResUNets "
+                         "only (as in the reference); a SimpleNet runs through make_backbone")
+
+
+def check_device_supported(cfg: PipelineConfig, device) -> None:
+    """Raise ``NotImplementedError`` for options the card's kernels do not
+    take: the conv kernels multiply bf16 operands only, so
+    ``backbone_compute_dtype=None`` (f32 convs) runs on the CPU alone."""
+    if getattr(device, "type", device) == "cuda" and cfg.backbone_compute_dtype is None:
         raise NotImplementedError(
-            f"backbone {cfg.backbone_variant!r} is not ported yet "
-            "(ROADMAP.md queue A, item A8); the BN ResUNets are"
+            "backbone_compute_dtype=None (f32 conv operands) is not ported to the GPU: "
+            "ROADMAP.md queue A, item A11 (f32 operands for the conv kernels); "
+            "use 'bfloat16', or device='cpu'"
         )
 
 

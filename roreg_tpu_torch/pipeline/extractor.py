@@ -46,13 +46,21 @@ from roreg_tpu_torch.sparse.block import (
     unpack_block_payload,
 )
 from roreg_tpu_torch.sparse.kernel_map import SparsePyramid
-from roreg_tpu_torch.sparse.resunet import ResUNet, flatten_batch, offset_table
+from roreg_tpu_torch.sparse.resunet import (
+    SIMPLENET_VARIANTS,
+    ResUNet,
+    SimpleNet,
+    flatten_batch,
+    offset_table,
+)
 
 __all__ = [
+    "make_backbone",
     "effective_chunk",
     "PinnedArena",
     "extract_group_features_hostmaps",
     "upload_chunk",
+    "upload_pyramid",
     "backbone_chunk",
     "build_cloud_payloads",
     "upload_cloud_payloads",
@@ -61,6 +69,21 @@ __all__ = [
     "dispatch_cloud_payloads",
     "extract_group_features_blocks",
 ]
+
+
+def make_backbone(cfg: PipelineConfig, engine: str = "gather"):
+    """The FCGF model zoo by ``cfg.backbone_variant``, on the CPU: a
+    ``SimpleNet`` for the SimpleNet family, else a ``ResUNet`` (any BN or
+    IN variant) on the gather engine, or a ``BlockResUNet`` (BN variants)
+    on the block engine; out_channels 32, ``cfg``'s conv1 kernel and
+    compute dtype. The counterpart of the JAX package's ``make_backbone``,
+    which builds the gather engine's networks."""
+    args = (cfg.backbone_variant, 32, cfg.conv1_kernel_size, True, cfg.backbone_compute_dtype)
+    if engine == "block":
+        return BlockResUNet(*args)
+    if cfg.backbone_variant in SIMPLENET_VARIANTS:
+        return SimpleNet(*args)
+    return ResUNet(*args)
 
 
 def effective_chunk(g: int, requested: int) -> int:
@@ -109,6 +132,16 @@ def upload_chunk(buf: SparsePyramid, keys_rot: np.ndarray, device: torch.device)
         [dev(t) for t in buf.up],
     )
     return pyr, dev(buf.grid.rep_point), dev(keys_rot)
+
+
+def upload_pyramid(pyr: SparsePyramid, device: torch.device):
+    """Copy one host pyramid (no batch axis) to ``device`` as a
+    DevicePyramid of one cloud (the training forward's input)."""
+    dev = lambda x: _to_device(np.ascontiguousarray(x)[None], device)  # noqa: E731
+    return flatten_batch(
+        [dev(lvl.mask) for lvl in pyr.levels], dev(pyr.conv1_occ),
+        [dev(t) for t in pyr.same], [dev(t) for t in pyr.down], [dev(t) for t in pyr.up],
+    )
 
 
 def backbone_chunk(backbone: ResUNet, pyr, rep: torch.Tensor, keys: torch.Tensor) -> torch.Tensor:

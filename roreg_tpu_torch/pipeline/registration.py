@@ -43,7 +43,7 @@ from roreg_tpu_torch.models.gf import GroupFeatNetwork
 from roreg_tpu_torch.models.rd import RotationDetector
 from roreg_tpu_torch.models.rm import RotationCoherenceMatcher
 from roreg_tpu_torch.pipeline import estimator as est
-from roreg_tpu_torch.pipeline.config import PipelineConfig, check_supported
+from roreg_tpu_torch.pipeline.config import PipelineConfig, check_device_supported, check_supported
 from roreg_tpu_torch.pipeline.extractor import (
     extract_group_features_blocks,
     extract_group_features_hostmaps,
@@ -171,6 +171,7 @@ class RegistrationPipeline:
         check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        check_device_supported(cfg, self.device)
         group = get_group(cfg.group_size)
         self.cayley = torch.as_tensor(group.cayley, dtype=torch.long, device=self.device)
         self.rotations = torch.as_tensor(group.rotations, dtype=torch.float32, device=self.device)

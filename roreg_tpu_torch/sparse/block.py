@@ -313,9 +313,10 @@ class BlockResUNet(nn.Module):
         compute_dtype: str | None = None,
     ):
         super().__init__()
-        if variant not in RESUNET_VARIANTS:
-            raise NotImplementedError(
-                f"backbone {variant!r} is not ported (ROADMAP.md queue A, item A8)"
+        if RESUNET_VARIANTS.get(variant, (0, 0, ""))[2] != "BN":
+            raise ValueError(
+                f"backbone {variant!r} does not run on the block engine, whose residual blocks are "
+                "batch-norm ResUNet blocks only (as in the reference)"
             )
         ch, tr, _ = RESUNET_VARIANTS[variant]
         cd = compute_dtype

@@ -1,9 +1,11 @@
-"""Sparse convolution layers over precomputed kernel maps (inference).
+"""Sparse convolution layers over precomputed kernel maps.
 
 Counterparts of ``unpack_occupancy``, ``OccupancyConv``,
-``MaskedBatchNorm`` and ``SparseConv`` in ``roreg_tpu/sparse/conv.py``.
-Every ``SparseConv`` goes through :func:`roreg_tpu_torch.kernels.gather_conv.gather_conv`:
-the plain version for CPU tensors, the CUDA kernel for GPU tensors.
+``MaskedBatchNorm``, ``MaskedInstanceNorm`` and ``SparseConv`` in
+``roreg_tpu/sparse/conv.py``, for inference and training. Every
+``SparseConv`` goes through :func:`roreg_tpu_torch.kernels.gather_conv.gather_conv`:
+the plain version for CPU tensors, the CUDA kernel for GPU tensors, and
+with a gradient the kernels of its backward.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from torch import nn
 from roreg_tpu_torch.kernels.gather_conv import gather_conv
 from roreg_tpu_torch.layers import BatchNorm
 
-__all__ = ["unpack_occupancy", "MaskedBatchNorm", "OccupancyConv", "SparseConv"]
+__all__ = ["BN_MOMENTUM", "unpack_occupancy", "MaskedBatchNorm", "MaskedInstanceNorm", "OccupancyConv", "SparseConv"]
 
 
 def _dtype(name: str | None) -> torch.dtype | None:
@@ -29,14 +31,68 @@ def unpack_occupancy(words: torch.Tensor, kernel_volume: int) -> torch.Tensor:
     return bits.reshape(words.shape[0], -1)[:, :kernel_volume].float()
 
 
-class MaskedBatchNorm(BatchNorm):
-    """Batch norm with running statistics over the last axis; pad rows
-    (``mask`` False, the shape of ``x`` without its last axis) are zeroed
-    (eps 1e-5)."""
+def _zero_pad(y: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    return torch.where(mask[..., None], y, torch.zeros((), dtype=y.dtype, device=y.device))
 
-    def forward(self, x: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
-        y = super().forward(x)
-        return torch.where(mask[..., None], y, torch.zeros((), dtype=y.dtype, device=y.device))
+
+# running-statistics momentum of every FCGF backbone's masked batch norm
+# (torch's convention; the reference's ``bn_momentum``)
+BN_MOMENTUM = 0.05
+
+
+def _masked_stats(x: torch.Tensor, mask: torch.Tensor, groups: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Mean and biased variance per channel over the rows where ``mask``
+    holds, for each of ``groups`` equal stacks of rows: (groups, 1, C)
+    each (``denom = max(sum(mask), 1)``; the mean first, then the variance
+    in a second pass)."""
+    xg = x.reshape(groups, -1, x.shape[-1])
+    w = mask.reshape(groups, -1, 1).to(x.dtype)
+    denom = w.sum(1, keepdim=True).clamp_min(1.0)
+    mean = (xg * w).sum(1, keepdim=True) / denom
+    var = (((xg - mean) ** 2) * w).sum(1, keepdim=True) / denom
+    return mean, var
+
+
+def _affine(norm: nn.Module, x, mask, mean, var, groups: int) -> torch.Tensor:
+    y = (x.reshape(groups, -1, x.shape[-1]) - mean) * torch.rsqrt(var + norm.eps) * norm.weight + norm.bias
+    return _zero_pad(y.reshape(x.shape), mask)
+
+
+class MaskedBatchNorm(BatchNorm):
+    """Batch norm over the valid rows (``mask`` True; its shape is that of
+    ``x`` without the last axis); pad rows come out zero (eps 1e-5).
+
+    Eval: the running statistics. Training (the module's mode): the mean
+    and biased variance over the valid rows only, pooled over every stacked
+    group, and the running statistics move by torch's convention, ``(1 - m)
+    * old + m * batch`` with m = ``BN_MOMENTUM``, as the reference's
+    ``MaskedBatchNorm``. (``layers.BatchNorm``, the heads' norm, keeps
+    flax's rule over every row.)"""
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, groups: int = 1) -> torch.Tensor:
+        if not self.training:
+            return _affine(self, x, mask, self.running_mean, self.running_var, 1)
+        mean, var = _masked_stats(x, mask, 1)
+        with torch.no_grad():
+            self.running_mean.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * mean.view(-1))
+            self.running_var.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * var.view(-1))
+        return _affine(self, x, mask, mean, var, 1)
+
+
+class MaskedInstanceNorm(nn.Module):
+    """Instance norm over each cloud's valid rows, per channel: no running
+    statistics, train and eval alike; pad rows come out zero (eps 1e-5).
+    ``groups`` stacked clouds of equal capacity (a batched pyramid) are
+    normalised each on its own rows."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+
+    def forward(self, x: torch.Tensor, mask: torch.Tensor, groups: int = 1) -> torch.Tensor:
+        return _affine(self, x, mask, *_masked_stats(x, mask, groups), groups)
 
 
 class OccupancyConv(nn.Module):
@@ -57,14 +113,14 @@ class OccupancyConv(nn.Module):
         w = self.kernel.reshape(self.kernel_volume, -1)
         if self.compute_dtype is not None:
             w = w.to(self.compute_dtype)
-        y = occ @ w.float()
-        return torch.where(out_mask[:, None], y, torch.zeros((), device=y.device))
+        return _zero_pad(occ @ w.float(), out_mask)
 
 
 class SparseConv(nn.Module):
     """One sparse conv over a gather table: ``(K, Cin, Cout)`` kernel, no
     bias. With ``compute_dtype`` (bf16 on the GPU) features and kernel are
-    cast to it and the gather-GEMM accumulates in f32."""
+    cast to it and the gather-GEMM accumulates in f32; their gradients are
+    rounded to it once, where the casts' backward passes them."""
 
     def __init__(
         self, in_channels: int, out_channels: int, kernel_volume: int = 27,
@@ -80,5 +136,4 @@ class SparseConv(nn.Module):
         w = self.kernel
         if self.compute_dtype is not None:
             feats, w = feats.to(self.compute_dtype), w.to(self.compute_dtype)
-        y = gather_conv(feats.contiguous(), nbr, w.contiguous())
-        return torch.where(out_mask[:, None], y, torch.zeros((), device=y.device))
+        return _zero_pad(gather_conv(feats.contiguous(), nbr, w.contiguous()), out_mask)

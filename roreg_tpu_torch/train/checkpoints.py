@@ -8,7 +8,9 @@ variables under their flat JAX paths, float32) and ``config_tag.json``
 ``weights.load_checkpoint_dir`` read. A trainer's checkpoint adds
 ``train_state.npz``: the step count and Adam's two moments of every
 parameter under the same paths, so that a resumed run continues step for
-step. The trainer writes ``<model_dir>/<COMP>/model`` (every
+step. The backbone's training writes its variables alone to
+``<dir>/backbone_variables`` (the JAX package's raw-variables layout).
+The trainer writes ``<model_dir>/<COMP>/model`` (every
 ``save_interval`` steps) and ``<model_dir>/<COMP>/model_best`` (at the
 validation gate); ``model_dir`` is the caller's, never the tracked tree.
 """
@@ -89,13 +91,16 @@ def load_train_state(path: str, comp: str, state) -> bool:
 
 def load_pipeline_variables(checkpoint_dir: str, variables: dict, cfg) -> list[str]:
     """Replace in ``variables`` (the pipeline's, nested numpy) each network
-    whose checkpoint lies in ``checkpoint_dir``, in either layout:
-    ``<dir>/<comp>.npz`` (a converted set) or ``<dir>/<COMP>/model_best``
-    (a trainer's best checkpoint). Returns the loaded names."""
+    whose checkpoint lies in ``checkpoint_dir``, in any of the layouts:
+    ``<dir>/<comp>.npz`` (a converted set), ``<dir>/<comp>_variables``
+    (raw variables, as the backbone's training writes them) or
+    ``<dir>/<COMP>/model_best`` (a trainer's best checkpoint). Returns the
+    loaded names."""
     loaded = []
     for comp in COMPONENTS:
+        raw = os.path.join(checkpoint_dir, f"{comp}_variables")
         best = os.path.join(checkpoint_dir, comp.upper(), "model_best")
-        for path in (checkpoint_dir, best):
+        for path in (checkpoint_dir, raw, best):
             if os.path.exists(os.path.join(path, f"{comp}.npz")) and comp in variables:
                 loaded += load_components(path, cfg, variables, (comp,))
                 break

@@ -8,9 +8,15 @@ onto the port's modules, whose submodules carry the flax names:
   ``(out, in)``, biases as they are;
 * sparse-conv kernels keep ``(27|343, Cin, Cout)``;
 * batch norm: ``params/{scale,bias}`` and ``batch_stats/{mean,var}`` <->
-  ``weight``, ``bias``, ``running_mean``, ``running_var``.
+  ``weight``, ``bias``, ``running_mean``, ``running_var``;
+* instance norm (no statistics): ``params/{scale,bias}`` <-> ``weight``,
+  ``bias``.
 
 * RM's learned dustbin score: ``params/bin_score`` <-> ``bin_score``.
+
+A backbone's training state converts the same way: its ``params`` and
+``batch_stats`` load into every variant of the zoo (``load_variables``)
+and come back in the JAX layout (``export_variables``).
 
 Nothing here imports flax or orbax: callers restore checkpoints themselves
 and pass numpy arrays; :func:`flatten_variables` gives any tree as a flat
@@ -38,8 +44,8 @@ from roreg_tpu_torch.models.ops import GroupConv
 from roreg_tpu_torch.models.rd import RotationDetector
 from roreg_tpu_torch.models.rm import RotationCoherenceMatcher
 from roreg_tpu_torch.pipeline.config import PipelineConfig, rm_row_block
-from roreg_tpu_torch.sparse.block import BlockResUNet
-from roreg_tpu_torch.sparse.resunet import ResUNet
+from roreg_tpu_torch.pipeline.extractor import make_backbone
+from roreg_tpu_torch.sparse.conv import MaskedInstanceNorm
 
 __all__ = [
     "build_modules",
@@ -65,12 +71,8 @@ def build_modules(cfg: PipelineConfig) -> dict[str, nn.Module]:
     backbone of the engine (``cfg.engine``; both engines' ResUNets have one
     parameter tree), GF, RD, ET, and RM when ``cfg.use_rm``."""
     group = get_group(cfg.group_size)
-    backbone = {"block": BlockResUNet, "gather": ResUNet}[cfg.engine]
     nets = {
-        "backbone": backbone(
-            cfg.backbone_variant, 32, cfg.conv1_kernel_size, True,
-            cfg.backbone_compute_dtype,
-        ),
+        "backbone": make_backbone(cfg, cfg.engine),
         "gf": GroupFeatNetwork(group),
         "rd": RotationDetector(group),
         "et": EquivariantTransformer(group),
@@ -97,6 +99,9 @@ def _leaves(module: nn.Module) -> Iterator[tuple[torch.Tensor, tuple[str, ...], 
             yield m.bias, ("params",) + path + ("bias",), False
             yield m.running_mean, ("batch_stats",) + path + ("mean",), False
             yield m.running_var, ("batch_stats",) + path + ("var",), False
+        elif isinstance(m, MaskedInstanceNorm):
+            yield m.weight, ("params",) + path + ("scale",), False
+            yield m.bias, ("params",) + path + ("bias",), False
         elif "kernel" in m._parameters:
             yield m.kernel, ("params",) + path + ("kernel",), False
         elif "bin_score" in m._parameters:

@@ -541,3 +541,71 @@ def test_gather_conv_raises_on_out_of_range_entries_on_gpu(cuda_device):
     )
     assert run.returncode != 0
     assert "CUDA error" in run.stderr
+
+
+# the gather conv's two backward kernels: f32 sums with atomic adds, in
+# another order than the plain version's autograd (at most K x Cout terms
+# for dX, M terms for dW, of products of magnitude <~ 1)
+BWD_ATOL = 1e-3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,kvol", [(32, 32, 27), (64, 128, 27), (256, 256, 27), (16, 16, 27),
+                                           (48, 24, 7), (32, 64, 40)])
+def test_gather_conv_bwd_kernels_match_plain_on_gpu(cuda_device, cin, cout, kvol):
+    """dgrad and wgrad against their plain versions (autograd through
+    gather_conv_plain), with padding rows, tiles that use few offsets, a
+    ragged last tile, and widths and kernel volumes the forward kernel
+    does not take directly."""
+    from roreg_tpu_torch.kernels.gather_conv import (
+        gather_conv_dgrad, gather_conv_dgrad_kernel, gather_conv_dgrad_plain,
+        gather_conv_wgrad, gather_conv_wgrad_kernel, gather_conv_wgrad_plain,
+    )
+
+    rng = np.random.default_rng(cin + cout + kvol)
+    n, m = 2500, 64 * 9 + 37
+    nbr = torch.from_numpy(_gather_table(rng, m, n, kvol)).to(cuda_device)
+    feats = torch.from_numpy(rng.normal(size=(n, cin)).astype(np.float32)).to(cuda_device).bfloat16()
+    w = (torch.randn(kvol, cin, cout, device=cuda_device) * (2 / (kvol * cin)) ** 0.5).bfloat16()
+    dy = torch.randn(m, cout, device=cuda_device)
+    dy[-100:] = 0.0  # padding rows get no gradient
+    before = (gather_conv_dgrad_kernel.launches, gather_conv_wgrad_kernel.launches)
+    dx = gather_conv_dgrad(feats, nbr, w, dy)
+    dw = gather_conv_wgrad(feats, nbr, w, dy)
+    assert (gather_conv_dgrad_kernel.launches, gather_conv_wgrad_kernel.launches) == (before[0] + 1, before[1] + 1)
+    torch.cuda.synchronize()
+    assert dx.dtype == torch.float32 and dx.shape == feats.shape and dw.shape == w.shape
+    assert float((dx - gather_conv_dgrad_plain(feats, nbr, w, dy)).abs().max()) <= BWD_ATOL
+    assert float((dw - gather_conv_wgrad_plain(feats, nbr, w, dy)).abs().max()) <= BWD_ATOL
+    unused = torch.ones(n, dtype=torch.bool, device=cuda_device)
+    unused[nbr[nbr >= 0].long()] = False
+    assert not bool(dx[unused].any())
+
+
+@pytest.mark.cuda
+def test_gather_conv_with_a_gradient_runs_the_kernels_on_gpu(cuda_device):
+    """A CUDA tensor that needs a gradient goes through GatherConvFn: one
+    forward launch, then one dgrad and one wgrad launch; its gradients
+    equal autograd through the plain version within the tolerance (bf16
+    once rounded)."""
+    from roreg_tpu_torch.kernels.gather_conv import gather_conv_dgrad_kernel, gather_conv_wgrad_kernel
+
+    rng = np.random.default_rng(11)
+    n, m, cin, cout = 1800, 1500, 64, 32
+    nbr = torch.from_numpy(_gather_table(rng, m, n, 27)).to(cuda_device)
+    x = torch.from_numpy(rng.normal(size=(n, cin)).astype(np.float32)).to(cuda_device).requires_grad_()
+    w = (torch.randn(27, cin, cout, device=cuda_device) * 0.05).requires_grad_()
+    dy = torch.randn(m, cout, device=cuda_device)
+    counts = lambda: (gather_conv_kernel.launches, gather_conv_dgrad_kernel.launches,  # noqa: E731
+                      gather_conv_wgrad_kernel.launches)
+    before = counts()
+    out = gather_conv(x.bfloat16(), nbr, w.bfloat16())
+    assert type(out.grad_fn).__name__ == "GatherConvFnBackward"
+    out.backward(dy)
+    assert counts() == tuple(c + 1 for c in before)
+    x2, w2 = x.detach().bfloat16().float().requires_grad_(), w.detach().bfloat16().float().requires_grad_()
+    gather_conv_plain(x2, nbr, w2).backward(dy)
+    torch.cuda.synchronize()
+    # one bf16 rounding of each gradient: relative 2^-8 of its value
+    for got, want in ((x.grad, x2.grad), (w.grad, w2.grad)):
+        assert float((got - want.bfloat16().float()).abs().max()) <= BWD_ATOL + float(want.abs().max()) * 2 ** -8

@@ -91,13 +91,17 @@ def test_entry_point_needs_cuda_unless_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize(
-    "change,item",
-    [({"host_maps": False}, "A9"), ({"backbone_variant": "ResUNetIN2C"}, "A8")],
+    "change,item,device",
+    [({"host_maps": False}, "A9", "cpu"), ({"backbone_compute_dtype": None}, "A11", "cuda")],
 )
-def test_unported_options_raise(change, item):
+def test_unported_options_raise(change, item, device, monkeypatch):
+    """Device-built pyramids (A9) anywhere; f32 conv operands (A11) on a
+    CUDA device, refused before anything reaches the card (the device is
+    faked)."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     cfg = PipelineConfig(**{**SMALL, **change})
     with pytest.raises(NotImplementedError, match=item):
-        RegistrationPipeline(cfg, {}, device="cpu")
+        RegistrationPipeline(cfg, {}, device=device)
 
 
 def test_yohoc_is_accepted():

@@ -41,7 +41,7 @@ def test_parser_equals_jax():
     assert mine == ref
 
 
-@pytest.mark.parametrize("argv,item", [(["--component", "backbone"], "A10"),
+@pytest.mark.parametrize("argv,item", [(["--component", "backbone", "--n_devices", "2"], "A7"),
                                        (["--component", "GF", "--n_devices", "2"], "A7")])
 def test_not_ported_options_raise(argv, item, tmp_path):
     with pytest.raises(NotImplementedError, match=item):
