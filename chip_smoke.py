@@ -21,7 +21,12 @@ Phases, each ending in one flushed progress line on stderr:
    shapes of one full-width training forward (the tables of one
    full-capacity host pyramid of cloud 0, one cloud as training runs it),
    with a second launch's gap (f32 atomics: run-to-run nondeterministic),
-   max and mean gaps, CUDA-event times and the card's bound for each;
+   max and mean gaps, CUDA-event times, the card's bound and the launch
+   shape for each, and beside each kernel the time of a composite of
+   library calls that computes the same function (dgrad: one cuBLAS GEMM
+   of dY by every offset's W^T, then a masked ``index_add_``; wgrad: a
+   masked gather to (M, K, Cin), then one batched GEMM), a yardstick and
+   not a single library call;
 3b. block kernels: block_gather (bit-exact), halo_conv (1e-3), up_conv
    (1e-3), skip_concat (bit-exact) and cell_dense (1e-5 relative, with the
    level-0 cell mask the main path passes) against their plain versions at
@@ -232,7 +237,8 @@ OVERFIT_STEPS = 12
 PROFILED_STEPS = 3
 # phase 3d: dgrad and wgrad against autograd through the plain version;
 # f32 sums in another order (dgrad: <= 27 x Cout terms with atomic adds;
-# wgrad: <= M terms), outputs of magnitude <~ 100 at these shapes
+# wgrad: <= M terms), with dY split into three bf16 terms on the tensor
+# cores (2^-24 of it left), outputs of magnitude <~ 100 at these shapes
 BWD_ATOL = 1e-2
 
 # the run ends itself (exit code 1, tracebacks on stderr) after this long;
@@ -405,7 +411,7 @@ def phase_bwd_kernels(cfg, pair: dict, seed: int, device: str = "cuda") -> tuple
     caps = cfg.capacities
     gen = torch.Generator(device=dev).manual_seed(seed)
     l2_flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    keys = ("ms", "warm_l2_ms", "plain_ms", "bound_ms", "ops_ms", "bytes_ms")
+    keys = ("ms", "warm_l2_ms", "plain_ms", "composite_ms", "bound_ms", "ops_ms", "bytes_ms")
     totals = {n: {**dict.fromkeys(keys, 0.0), "err": 0.0, "mean_err": 0.0, "rerun_gap": 0.0}
               for n in ("gather_conv_dgrad", "gather_conv_wgrad")}
     rows = []
@@ -429,14 +435,19 @@ def phase_bwd_kernels(cfg, pair: dict, seed: int, device: str = "cuda") -> tuple
             if not np.isfinite(err) or err > BWD_ATOL:
                 raise AssertionError(f"{name} {label}: max abs err {err} > {BWD_ATOL}")
             del again, out_p
+            composite = _COMPOSITES[name]
+            comp_err = float((composite(feats, nbr, w, dy) - out_k).abs().max())
             row = {"kernel": name, "shape": label, "uses": uses, "max_abs_err": err, "mean_abs_err": mean_err,
-                   "rerun_gap": rerun,
+                   "rerun_gap": rerun, "composite_err": comp_err,
                    "ms": cuda_ms(lambda: kernel(feats, nbr, w, dy), reps=20, flush=l2_flush),
                    "warm_l2_ms": cuda_ms(lambda: kernel(feats, nbr, w, dy), reps=20),
-                   "plain_ms": cuda_ms(lambda: plain(feats, nbr, w, dy), reps=3, warmup=1, flush=l2_flush)}
+                   "plain_ms": cuda_ms(lambda: plain(feats, nbr, w, dy), reps=3, warmup=1, flush=l2_flush),
+                   "composite_ms": cuda_ms(lambda: composite(feats, nbr, w, dy), reps=5, warmup=1,
+                                           flush=l2_flush),
+                   **kernel.launch_shape(nbr.shape[0], cin, cout, 27)}
             work = bwd_work(name.rsplit("_", 1)[1], nbr, n_src, cin, cout)
             # bound at the tensor cores' TF32 rate: dY stays f32, its partner
-            # (W or X) is bf16; the SIMT kernels' own ceiling is PEAK_F32_FLOPS
+            # (W or X) is bf16
             row.update(_bound(*work, PEAK_TF32_FLOPS))
             row["tflops"] = work[0] / row["ms"] / 1e9
             t = totals[name]
@@ -447,14 +458,47 @@ def phase_bwd_kernels(cfg, pair: dict, seed: int, device: str = "cuda") -> tuple
             rows.append(row)
             progress(f"  {name:17s} {label:40s} err max {err:.2e} mean {mean_err:.2e} (rerun gap {rerun:.1e}) "
                      f"kernel {row['ms']:.3f} ms (warm L2 {row['warm_l2_ms']:.3f}) plain {row['plain_ms']:.3f} ms "
-                     f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), {row['tflops']:.2f} TFLOP/s")
+                     f"composite {row['composite_ms']:.3f} ms (err {comp_err:.1e}) "
+                     f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), {row['tflops']:.2f} TFLOP/s; "
+                     f"{row['blocks']} thread blocks, {row.get('offsets_per_block', row.get('rows_per_block'))} "
+                     f"{'offsets' if 'offsets_per_block' in row else 'rows'} each, {row['stages']} stages")
     for t in totals.values():
         t["bound_by"] = "operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes"
     progress("phase 3d backward kernels, one full-width forward's 20 convs: " + "; ".join(
-        f"{n} kernel {t['ms']:.2f} ms, plain {t['plain_ms']:.2f} ms, bound {t['bound_ms']:.3f} ms "
+        f"{n} kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.2f} ms, library composite {t['composite_ms']:.3f} ms, "
+        f"bound {t['bound_ms']:.4f} ms "
         f"({t['bound_by']}), max err {t['err']:.1e}, mean err {t['mean_err']:.1e}, rerun gap {t['rerun_gap']:.1e} "
         f"(tol {BWD_ATOL})" for n, t in totals.items()))
     return totals, rows
+
+
+def _dgrad_composite(feats, nbr, w, dy):
+    """dgrad from library calls: dY @ W_k^T for every offset k in one cuBLAS
+    GEMM (f32), the products of -1 entries zeroed, then one ``index_add_``
+    into dX (they add zero rows to row 0)."""
+    m, k = nbr.shape
+    cin, cout = w.shape[1], w.shape[2]
+    prod = (dy @ w.float().permute(2, 0, 1).reshape(cout, k * cin)).view(m * k, cin)
+    idx = nbr.reshape(-1).long()
+    prod = prod * (idx >= 0).unsqueeze(1)
+    return torch.zeros(feats.shape, dtype=torch.float32, device=dy.device).index_add_(0, idx.clamp_min(0), prod)
+
+
+def _wgrad_composite(feats, nbr, w, dy):
+    """wgrad from library calls: the gathered X rows (M, K, Cin) in f32,
+    zero for -1, then one batched GEMM with dY over the rows."""
+    idx = nbr.long()
+    g = feats.float()[idx.clamp_min(0)] * (idx >= 0).unsqueeze(-1)
+    return torch.matmul(g.permute(1, 2, 0), dy)
+
+
+# phase 3d's yardsticks: library-call composites of dgrad and wgrad, timed
+# beside the kernels and used nowhere in the port
+_COMPOSITES = {"gather_conv_dgrad": _dgrad_composite, "gather_conv_wgrad": _wgrad_composite}
+_COMPOSITE_NOTES = {
+    "gather_conv_dgrad": "a composite, not one library call: cuBLAS dY @ [W_k^T] stacked over k, then masked index_add_",
+    "gather_conv_wgrad": "a composite, not one library call: masked gather to (M, K, Cin), then one batched GEMM with dY",
+}
 
 
 def _bound(ops: int, nbytes: int, peak_flops: float = PEAK_BF16_FLOPS) -> dict:
@@ -1338,10 +1382,11 @@ def _profile_steps(step) -> dict:
     by_name: dict[str, float] = {}
     for e in device:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us() / 1e3 / PROFILED_STEPS
-    ours = {"gather_conv": "gather_conv_kernel", "gather_conv_dgrad": "dgrad_kernel",
-            "gather_conv_wgrad": "wgrad_kernel"}
-    kernel_ms = {k: sum(v for n, v in by_name.items() if tag in n) for k, tag in ours.items()}
-    rest = {n: v for n, v in by_name.items() if not any(tag in n for tag in ours.values())}
+    # the kernels' names (wgrad's call runs its split pass, then its kernel)
+    ours = {"gather_conv": ("gather_conv_kernel",), "gather_conv_dgrad": ("dgrad_kernel",),
+            "gather_conv_wgrad": ("wgrad_split_kernel", "wgrad_kernel")}
+    kernel_ms = {k: sum(v for n, v in by_name.items() if any(t in n for t in tags)) for k, tags in ours.items()}
+    rest = {n: v for n, v in by_name.items() if not any(t in n for tags in ours.values() for t in tags)}
     busy_ms = _union_us([(e.time_range.start, e.time_range.end) for e in device]) / 1e3 / PROFILED_STEPS
     res = {"steps": PROFILED_STEPS, "wall_ms": span.elapsed_us() / 1e3 / PROFILED_STEPS,
            "device_busy_ms": busy_ms, "kernel_ms": kernel_ms, "other_ms": sum(rest.values()),
@@ -1480,6 +1525,8 @@ def main() -> int:
                 "max_abs_err": t["err"], "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
                 "bound_by": t["bound_by"], "library_ms": None,
                 "library": "none: no PyTorch call computes the gradient of a gathered sum of per-offset GEMMs",
+                "composite_ms": t["composite_ms"],
+                "composite": _COMPOSITE_NOTES[name],
                 "unit": "the 20 convs of one full-width training forward's backward (one cloud, gather engine)",
                 "rerun_gap": t["rerun_gap"],
             })

@@ -10,10 +10,11 @@
 //   dgrad:  dx[n, :]  = sum_{(m, k): nbr[m, k] = n} dy[m, :] @ w[k]^T   (N, Cin) f32
 //   wgrad:  dw[k]     = sum_{m: nbr[m, k] >= 0} x[nbr[m, k], :]^T dy[m, :]   (K, Cin, Cout) f32
 //
-// Any Cin and Cout from 1 to 256 and any K >= 1 (the forward takes Cin in
-// multiples of 32, Cout 32..256 and K <= 32; its wrapper pads and splits).
-// An entry >= N traps (__trap(): the launch's next synchronisation raises
-// a CUDA error and the context is unusable), as the forward does.
+// dgrad takes Cin 32, 64, 128 or 256 and Cout a multiple of 4 up to 256;
+// wgrad Cin a multiple of 8 up to 256 and any Cout up to 256; both any K
+// up to 65535 (kernels/gather_conv.py pads other widths). An entry >= N
+// traps (__trap(): the launch's next synchronisation raises a CUDA error
+// and the context is unusable), as the forward does.
 //
 // Replaces the gradient of the TPU kernel roreg_tpu/sparse/window_conv.py
 // window_gather_conv. The JAX package trains through roreg_tpu/sparse/conv.py
@@ -22,239 +23,635 @@
 // JAX's cotangents are bf16 and its scatter-add sums in bf16; both kernels
 // here sum in f32 and the caller rounds once, to the operand's type.
 //
-// What bounds them on an H100 (67 TFLOP/s f32 FFMA, 3.35 TB/s HBM): each
-// does 2*Cin*Cout operations per valid (row, offset) entry in f32 and must
-// read dy (M x Cout f32), the table and w (dgrad) or the referenced rows of
-// x (wgrad), and write dx (N x Cin f32) or dw (K x Cin x Cout f32).
-// chip_smoke.py computes each shape's bound from the tables of its run
-// (kernels/gather_conv.py bwd_work).
+// What bounds them on an H100 (3.35 TB/s HBM; the operations fit the
+// tensor cores many times over): each must read the f32 dy rows that have
+// a valid entry and the whole table, and dgrad the bf16 weights and the
+// f32 dx it writes, wgrad each referenced bf16 row of x and the f32 dw it
+// writes. chip_smoke.py computes each shape's bound from the tables of its
+// run (kernels/gather_conv.py bwd_work). On the training path most rows
+// are capacity padding, all -1; the coarse levels have few live tiles.
 //
-// Design: plain SIMT f32, no tensor cores; a simple kernel that is right.
-// dgrad: a thread block owns a 64-row tile of dy and a 32-channel slice of
-// dx. It stages the tile's dy rows in shared memory once, then walks the K
-// offsets: it reads the tile's 64 indices of offset k, skips the offset when
-// none is valid (the capacity padding's rows are all -1), stages w[k]'s
-// slice (Cout x 32, as f32), and each of its 8 warps computes 8 rows' 32
-// channels (one channel a lane, the dy values broadcast) and adds them to
-// dx with f32 atomics: dgrad is run-to-run nondeterministic in the last
-// bits (the order of the atomic adds). wgrad: a thread block owns one
-// offset, a 64 x 32 (Cin x Cout) tile of dw and a range of rows; it stages
-// 32 rows at a time (the gathered x rows as f32, zero for -1, and their dy
-// rows), skipping a group whose 32 entries are all -1, and keeps 8 partial
-// sums a thread in registers (one Cout column a lane, 8 Cin rows a warp);
-// at the end it adds the tile to dw with f32 atomics, so wgrad is
-// nondeterministic in the same way. The row ranges are sized so that a
-// launch has about 2000 thread blocks.
+// Arithmetic: wgmma multiplies bf16 by bf16 into f32, and dy is f32. Each
+// dy value is split, where it is staged, into three bf16 terms hi + mid +
+// lo that leave 2^-24 of it (hopper.cuh split_bf16x3); the three are
+// multiplied by the same bf16 w or x into one f32 accumulator. So both
+// kernels keep f32's precision on the tensor cores (one bf16 term would be
+// 2^-9, against the checks' tolerances), at three times the products.
+//
+// dgrad: a work item is a 64-row tile of dy, a tile of at most 128 dx
+// channels, and a group of at most 8 offsets; the offsets are cut into as
+// many groups as keep about 1024 thread blocks in a launch, so the coarse
+// levels' few live tiles spread over the SMs (two to four offsets a block
+// at the coarsest). A thread block (one consumer warpgroup, one producer warp)
+// reads its tile's entries of its offsets, lists the offsets some row
+// uses, and leaves if there are none (the capacity padding's tiles). The
+// consumers stage the tile's dy once, as the three bf16 terms in wgmma's
+// K-major layout (K = Cout), while the producer streams the used offsets'
+// w[k]^T (packed by the wrapper, K = Cout in slots of 32, N = the channel
+// tile) with cp.async.bulk through an mbarrier ring. wgmma.mma_async
+// m64nNk16 runs A (the dy terms) and B (w[k]^T) from shared-memory
+// descriptors into f32 registers; after an offset's last slot, each warp
+// adds its 16 rows of the 64 x N product to dx at the rows the table names
+// (skipping -1) with 8-byte vector reductions, four lanes covering 32
+// contiguous bytes of a row. The atomics make any table right, repeated
+// targets included, and make dgrad run-to-run nondeterministic in the last
+// bits.
+//
+// wgrad: first a split pass writes, for each 32-row group with a valid
+// entry, the three bf16 terms of its dy rows in wgmma's B layout (K = the
+// rows, N = Cout padded to 32, 64, 128 or 256), into scratch the wrapper
+// allocates. A work item is then an offset k, a 64-channel Cin tile, and a
+// range of row groups sized so a launch has about 2048 thread blocks. A
+// thread block lists its range's groups with a valid entry at k (the
+// others are skipped). Its producer warp streams each live group's dy
+// terms by cp.async.bulk; its consumer warpgroup gathers the group's 32 x
+// rows (64 channels, zero for -1) by 16-byte cp.async one to six groups
+// ahead (the ring's slots less two), reads them transposed (M = Cin, K = rows) into registers with
+// ldmatrix.trans, and runs wgmma m64nCoutk16 against each dy term. So each
+// gathered x row is fetched once per Cin tile and each dy row once per
+// (k, Cin tile). At the end the 64 x Cout tile is added to dw with 8-byte
+// vector reductions (run-to-run nondeterministic like dgrad).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+using namespace hopper;
+
+constexpr int kWG = 128;            // the consumer warpgroup
+constexpr int kThreads = kWG + 32;  // and the producer warp
 constexpr int kMaxC = 256;
+constexpr int kMaxK = 65535;
 
-// dgrad tile: 64 dy rows x 32 dx channels
-constexpr int kDRows = 64;
-constexpr int kDCi = 32;
-constexpr int kDRowsPerWarp = kDRows / kWarps;  // 8
+// dgrad: 64 dy rows a tile (wgmma's M), at most 128 dx channels a thread
+// block (wgmma's N; 256 would take 250 registers a thread and one thread
+// block an SM), w^T in slots of 32 Cout rows (two wgmma K steps), at most
+// 8 offsets a thread block, about 1024 thread blocks a launch (the
+// fastest of the counts measured on the card)
+constexpr int kBM = 64;
+constexpr int kMaxCiTile = 128;
+constexpr int kKC = 32;
+constexpr int kMaxOffsets = 8;
+constexpr int kLDI = kMaxOffsets + 1;  // index row pitch
+constexpr int kDgradBlocks = 1024;
 
-// wgrad tile: 64 Cin x 32 Cout, rows staged 32 at a time
-constexpr int kWCi = 64;
-constexpr int kWCo = 32;
+// wgrad: 32 rows a step (two wgmma K steps), 64 input channels a thread
+// block (wgmma's M), at most 32 row groups a thread block (listed in one
+// warp), about 2048 thread blocks a launch
+constexpr int kWgradBlocks = 2048;
 constexpr int kWRows = 32;
-constexpr int kWCiPerWarp = kWCi / kWarps;  // 8
+constexpr int kWKSteps = kWRows / 16;
+constexpr int kWCi = 64;
+constexpr int kMaxGroups = 32;
+constexpr int kSplitThreads = 256;
 
 __host__ __device__ inline int64_t cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
-inline size_t dgrad_smem(int cout) {
-  return sizeof(float) * (static_cast<size_t>(kDRows) * cout + static_cast<size_t>(cout) * (kDCi + 1));
-}
+template <int CI>
+struct DgradLayout {
+  static constexpr int kSlot = kKC * CI * 2;  // 32 rows (Cout) of w[k]^T
+  static constexpr int kStages = 32768 / kSlot < 4 ? 4 : (32768 / kSlot > 8 ? 8 : 32768 / kSlot);
+  // dynamic shared memory: the dy tile's three terms (64 x coutp each),
+  // the ring, and its full and empty mbarriers
+  static constexpr size_t bytes(int coutp) {
+    return static_cast<size_t>(3 * kBM * 2) * coutp + kStages * kSlot + 16 * kStages;
+  }
+  static_assert(bytes(kMaxC) <= 232448, "fits a thread block's shared memory");
+};
 
+template <int CI>
 __global__ void __launch_bounds__(kThreads)
 dgrad_kernel(const float* __restrict__ dy, const int32_t* __restrict__ nbr,
-             const __nv_bfloat16* __restrict__ w, float* __restrict__ dx, int64_t m, int64_t n,
-             int cin, int cout, int kvol) {
-  extern __shared__ float smem[];
-  float* dys = smem;                               // [kDRows][cout]
-  float* ws = smem + static_cast<size_t>(kDRows) * cout;  // [cout][kDCi + 1]
-  __shared__ int32_t idx[kDRows];
+             const __nv_bfloat16* __restrict__ wt, float* __restrict__ dx, int64_t m, int64_t n,
+             int cin, int cout, int kvol, int groups) {
+  using L = DgradLayout<CI>;
+  constexpr int kStages = L::kStages;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  __shared__ int idx_s[kBM * kLDI];
+  __shared__ int flag_s[kMaxOffsets];  // offset j of the group is used by some row of the tile
+  __shared__ int used_s[kMaxOffsets];  // the used offsets, in order
+  __shared__ int nused_s;
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int64_t m0 = static_cast<int64_t>(blockIdx.x) * kDRows;
-  const int ci0 = blockIdx.y * kDCi;
-  const int ci = ci0 + lane;
+  const int coutp = (cout + kKC - 1) / kKC * kKC;
+  const int ctiles = cin / CI;
+  const int ct = static_cast<int>(blockIdx.x % ctiles);  // the block's CI channels of dx
+  const int item = static_cast<int>(blockIdx.x / ctiles);
+  const int64_t row0 = static_cast<int64_t>(item / groups) * kBM;
+  const int per = static_cast<int>(cdiv(kvol, groups));
+  const int k0 = (item % groups) * per;
+  const int nk = kvol - k0 < per ? kvol - k0 : per;
+  const int rows = m - row0 < kBM ? static_cast<int>(m - row0) : kBM;
+  const int term_bytes = kBM * coutp * 2;
+  const uint32_t a0 = smem_addr(smem);
+  const uint32_t ring0 = a0 + 3 * term_bytes;
+  const uint32_t full0 = ring0 + kStages * L::kSlot;
+  const uint32_t empty0 = full0 + 8 * kStages;
 
-  for (int e = tid; e < kDRows * cout; e += kThreads) {
-    const int r = e / cout;
-    const int64_t row = m0 + r;
-    dys[e] = row < m ? dy[row * cout + (e - r * cout)] : 0.0f;
+  if (tid < kMaxOffsets) flag_s[tid] = 0;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);   // the slot's bulk copy
+      mbar_init(empty0 + 8 * s, 4);  // one arrival per consumer warp
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  // the tile's entries of this group's offsets; a negative entry is absent,
+  // an entry >= n an error
+  for (int e = tid; e < kBM * nk; e += kThreads) {
+    const int r = e / nk;
+    const int j = e - r * nk;
+    int src = -1;
+    if (r < rows) {
+      src = nbr[(row0 + r) * kvol + k0 + j];
+      if (src >= n) __trap();
+      if (src < 0) {
+        src = -1;
+      } else {
+        flag_s[j] = 1;
+      }
+    }
+    idx_s[r * kLDI + j] = src;
+  }
+  __syncthreads();
+  if (tid < 32) {  // the used offsets, listed in order
+    const bool used = tid < nk && flag_s[tid] != 0;  // nk <= kMaxOffsets
+    const unsigned ballot = __ballot_sync(0xffffffffu, used);
+    if (used) used_s[__popc(ballot & ((1u << tid) - 1u))] = tid;
+    if (tid == 0) nused_s = __popc(ballot);
+  }
+  __syncthreads();
+  const int nused = nused_s;
+  if (nused == 0) return;  // a tile of padding rows for these offsets
+  const int cs = coutp / kKC;  // slots an offset
+  const int steps = nused * cs;
+
+  if (tid >= kWG) {  // producer warp: one thread streams w[k]^T's slots
+    if (tid == kWG) {
+      for (int s = 0; s < steps; ++s) {
+        const int slot = s % kStages;
+        if (s >= kStages) mbar_wait(empty0 + 8 * slot, (s / kStages - 1) & 1);
+        const int k = k0 + used_s[s / cs];
+        mbar_arrive_expect_tx(full0 + 8 * slot, L::kSlot);
+        bulk_copy(ring0 + slot * L::kSlot,
+                  wt + ((static_cast<int64_t>(k) * ctiles + ct) * (coutp / 16) + 2 * (s % cs)) * 16 * CI,
+                  L::kSlot, full0 + 8 * slot);
+      }
+    }
+    return;
   }
 
-  for (int k = 0; k < kvol; ++k) {
-    int32_t v = -1;
-    if (tid < kDRows && m0 + tid < m) {
-      v = nbr[(m0 + tid) * kvol + k];
-      if (v >= n) __trap();
-    }
-    __syncthreads();  // the previous offset's readers of idx and ws are done
-    if (tid < kDRows) idx[tid] = v;
-    if (!__syncthreads_or(v >= 0)) continue;
-    for (int e = tid; e < kDCi * cout; e += kThreads) {
-      const int c = e / cout;
-      const int co = e - c * cout;
-      const float val = ci0 + c < cin
-          ? __bfloat162float(w[(static_cast<int64_t>(k) * cin + ci0 + c) * cout + co]) : 0.0f;
-      ws[co * (kDCi + 1) + c] = val;
-    }
-    __syncthreads();
-    float acc[kDRowsPerWarp];
+  // The dy tile's three terms, each in wgmma's K-major layout: element
+  // (r, c) at byte (r / 8) * 16 coutp + (c / 8) * 128 + (r % 8) * 16 +
+  // (c % 8) * 2. A thread takes one row's 8 columns, so a warp's 16-byte
+  // stores fill 512 contiguous bytes; rows past m and columns past cout
+  // are zero.
+  const int c8n = coutp / 8;
+  for (int e = tid; e < kBM * c8n; e += kWG) {
+    const int r8 = e & 7;
+    const int c8 = (e >> 3) % c8n;
+    const int rg = (e >> 3) / c8n;
+    const int r = rg * 8 + r8;
+    float v[8];
 #pragma unroll
-    for (int j = 0; j < kDRowsPerWarp; ++j) acc[j] = 0.0f;
-    for (int co = 0; co < cout; ++co) {
-      const float wv = ws[co * (kDCi + 1) + lane];
+    for (int h = 0; h < 2; ++h) {
+      const int c = c8 * 8 + 4 * h;
+      float4 q = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (r < rows && c < cout) q = *reinterpret_cast<const float4*>(dy + (row0 + r) * cout + c);
+      v[4 * h] = q.x;
+      v[4 * h + 1] = q.y;
+      v[4 * h + 2] = q.z;
+      v[4 * h + 3] = q.w;
+    }
+    uint4 t[3];
+    split8_bf16x3(v, t);
+    const int off = rg * coutp * 16 + c8 * 128 + r8 * 16;
 #pragma unroll
-      for (int j = 0; j < kDRowsPerWarp; ++j) {
-        acc[j] = fmaf(dys[(warp + j * kWarps) * cout + co], wv, acc[j]);
+    for (int i = 0; i < 3; ++i) *reinterpret_cast<uint4*>(smem + i * term_bytes + off) = t[i];
+  }
+  fence_proxy_async();  // the stores, to wgmma's reads
+  named_barrier(1, kWG);
+
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int col = (lane & 3) * 2;
+  const uint32_t sbo = coutp * 16;
+  float acc[CI / 2];
+#pragma unroll
+  for (int i = 0; i < CI / 2; ++i) acc[i] = 0.f;
+  for (int s = 0; s < steps; ++s) {
+    const int slot = s % kStages;
+    const int c = s % cs;
+    mbar_wait(full0 + 8 * slot, (s / kStages) & 1);
+    __syncwarp();  // converged for the .aligned wgmma instructions
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 2; ++kk) {
+      const uint32_t b = ring0 + slot * L::kSlot + kk * 16 * CI * 2;
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        wgmma_tile_ss<CI>(acc, smem_desc(a0 + i * term_bytes + (2 * c + kk) * 256, 128, sbo), b);
       }
     }
-    if (ci < cin) {
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous step's products have read its slot
+    if (c != 0 && lane == 0) mbar_arrive(empty0 + 8 * ((s - 1) % kStages));
+    if (c == cs - 1) {  // the offset's last slot: its product is complete
+      wgmma_wait<0>();
+      if (lane == 0) mbar_arrive(empty0 + 8 * slot);
+      const int j = used_s[s / cs];
+      // accumulator element 4q + e: row 16 warp + lane / 4 + 8 (e / 2),
+      // column 8q + 2 (lane % 4) + e % 2
 #pragma unroll
-      for (int j = 0; j < kDRowsPerWarp; ++j) {
-        const int32_t src = idx[warp + j * kWarps];
-        if (src >= 0) atomicAdd(dx + static_cast<int64_t>(src) * cin + ci, acc[j]);
+      for (int h = 0; h < 2; ++h) {
+        const int src = idx_s[(16 * warp + (lane >> 2) + 8 * h) * kLDI + j];
+        if (src >= 0) {
+          float* dst = dx + static_cast<int64_t>(src) * cin + ct * CI + col;
+#pragma unroll
+          for (int q = 0; q < CI / 8; ++q) red_add_v2(dst + 8 * q, acc[4 * q + 2 * h], acc[4 * q + 2 * h + 1]);
+        }
       }
+#pragma unroll
+      for (int i = 0; i < CI / 2; ++i) acc[i] = 0.f;
     }
+    __syncwarp();
   }
 }
 
+int dgrad_ci_tile(int cin) { return cin < kMaxCiTile ? cin : kMaxCiTile; }
+
+// offset groups a dgrad tile is cut into: about kDgradBlocks thread blocks
+// a launch, at most kMaxOffsets offsets a block
+int dgrad_groups(int64_t m, int cin, int kvol) {
+  const int64_t items = cdiv(m, kBM) * (cin / dgrad_ci_tile(cin));
+  int64_t g = cdiv(kDgradBlocks, items > 0 ? items : 1);
+  if (g < cdiv(kvol, kMaxOffsets)) g = cdiv(kvol, kMaxOffsets);
+  if (g > kvol) g = kvol;
+  return static_cast<int>(cdiv(kvol, cdiv(kvol, g)));
+}
+
+// the split pass's B stages: for each kWRows-row group, term t and K step
+// kk (rows 16 kk .. 16 kk + 15) hold a stage of 16 x co in hopper.cuh
+// b_desc's layout, at (t * kWKSteps + kk) * 16 * co elements of the
+// group's 3 * kWRows * co
+template <int CO>
+struct WgradLayout {
+  static constexpr int kAStage = kWRows * kWCi * 2;   // a group's gathered rows x 64 channels
+  static constexpr int kBStage = 3 * kWRows * CO * 2;  // their dy rows' three terms
+  static constexpr int kSlot = kAStage + kBStage;
+  static constexpr int kFit = 65536 / kSlot;  // 3 thread blocks an SM below Cout 128
+  static constexpr int kStages = kFit < 3 ? 3 : (kFit > 8 ? 8 : kFit);
+  static constexpr int kBarOff = kStages * kSlot;
+  static constexpr int kBytes = kBarOff + 16 * kStages;
+  static_assert(kBytes <= 232448, "fits a thread block's shared memory");
+};
+
+template <int CO>
+__global__ void __launch_bounds__(kSplitThreads)
+wgrad_split_kernel(const float* __restrict__ dy, const int32_t* __restrict__ nbr,
+                   __nv_bfloat16* __restrict__ dys, int64_t m, int cout, int kvol) {
+  const int64_t g = blockIdx.x;
+  const int64_t r0 = g * kWRows;
+  const int rows = m - r0 < kWRows ? static_cast<int>(m - r0) : kWRows;
+  // a group none of whose entries is valid is never read: its table rows
+  // are contiguous, and read once
+  const int32_t* tbl = nbr + r0 * kvol;
+  bool live = false;
+  for (int e = threadIdx.x; e < rows * kvol; e += kSplitThreads) live |= tbl[e] >= 0;
+  if (!__syncthreads_or(live)) return;
+  uint4* out = reinterpret_cast<uint4*>(dys + g * (3 * kWRows * CO));
+  // a thread takes 8 rows of one column (a warp reads 32 consecutive
+  // columns of a row at a time) and writes each term's 8 values as one
+  // 16-byte word
+  for (int e = threadIdx.x; e < (kWRows / 8) * CO; e += kSplitThreads) {
+    const int col = e % CO;
+    const int q = e / CO;  // rows 8q .. 8q + 7
+    float v[8];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int r = 8 * q + i;
+      v[i] = r < rows && col < cout ? dy[(r0 + r) * cout + col] : 0.f;
+    }
+    uint4 t[3];
+    split8_bf16x3(v, t);
+    const int off = (col >> 3) * 128 + (q & 1) * 64 + (col & 7) * 8;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) out[((i * kWKSteps + (q >> 1)) * 16 * CO + off) / 8] = t[i];
+  }
+}
+
+template <int CO>
 __global__ void __launch_bounds__(kThreads)
 wgrad_kernel(const __nv_bfloat16* __restrict__ x, const int32_t* __restrict__ nbr,
-             const float* __restrict__ dy, float* __restrict__ dw, int64_t m, int64_t n, int cin,
-             int cout, int kvol, int64_t rows_per_block) {
-  __shared__ float xs[kWRows][kWCi];
-  __shared__ float dys[kWRows][kWCo];
-  __shared__ int32_t idx[kWRows];
+             const __nv_bfloat16* __restrict__ dys, float* __restrict__ dw, int64_t m, int64_t n,
+             int cin, int cout, int kvol, int groups_per_block) {
+  using L = WgradLayout<CO>;
+  constexpr int kStages = L::kStages;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  __shared__ int idx_s[kMaxGroups * kWRows];
+  __shared__ int live_s[kMaxGroups];  // the range's groups with a valid entry at k, in order
+  __shared__ int nlive_s;
 
   const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
   const int k = blockIdx.y;
-  const int co_tiles = static_cast<int>(cdiv(cout, kWCo));
-  const int ci0 = (blockIdx.z / co_tiles) * kWCi;
-  const int co0 = (blockIdx.z % co_tiles) * kWCo;
-  const int64_t r_begin = static_cast<int64_t>(blockIdx.x) * rows_per_block;
-  const int64_t r_end = r_begin + rows_per_block < m ? r_begin + rows_per_block : m;
+  const int ci0 = blockIdx.z * kWCi;
+  const int64_t g0 = static_cast<int64_t>(blockIdx.x) * groups_per_block;
+  const int64_t r0 = g0 * kWRows;
+  const int64_t left = m - r0;
+  const int nrows = left < groups_per_block * kWRows ? static_cast<int>(left) : groups_per_block * kWRows;
+  const uint32_t full0 = smem_addr(smem + L::kBarOff);
+  const uint32_t empty0 = full0 + 8 * kStages;
 
-  float acc[kWCiPerWarp];
-#pragma unroll
-  for (int j = 0; j < kWCiPerWarp; ++j) acc[j] = 0.0f;
+  if (tid == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full0 + 8 * s, 1);   // the dy terms' bulk copy
+      mbar_init(empty0 + 8 * s, 4);  // one arrival per consumer warp
+    }
+    mbar_init_fence();
+  }
+  for (int e = tid; e < groups_per_block * kWRows; e += kThreads) {
+    int src = -1;
+    if (e < nrows) {
+      src = nbr[(r0 + e) * kvol + k];
+      if (src >= n) __trap();
+      if (src < 0) src = -1;
+    }
+    idx_s[e] = src;
+  }
+  __syncthreads();
+  if (tid < 32) {  // the live groups, listed in order
+    bool live = false;
+    if (tid < groups_per_block) {
+      for (int r = 0; r < kWRows; ++r) live |= idx_s[tid * kWRows + r] >= 0;
+    }
+    const unsigned ballot = __ballot_sync(0xffffffffu, live);
+    if (live) live_s[__popc(ballot & ((1u << tid) - 1u))] = tid;
+    if (tid == 0) nlive_s = __popc(ballot);
+  }
+  __syncthreads();
+  const int steps = nlive_s;
+  if (steps == 0) return;
 
-  for (int64_t r0 = r_begin; r0 < r_end; r0 += kWRows) {
-    int32_t v = -1;
-    if (tid < kWRows && r0 + tid < r_end) {
-      v = nbr[(r0 + tid) * kvol + k];
-      if (v >= n) __trap();
+  if (tid >= kWG) {  // producer warp: one thread streams the dy terms
+    if (tid == kWG) {
+      for (int s = 0; s < steps; ++s) {
+        const int slot = s % kStages;
+        if (s >= kStages) mbar_wait(empty0 + 8 * slot, (s / kStages - 1) & 1);
+        mbar_arrive_expect_tx(full0 + 8 * slot, L::kBStage);
+        bulk_copy(smem_addr(smem + slot * L::kSlot + L::kAStage),
+                  dys + (g0 + live_s[s]) * (3 * kWRows * CO), L::kBStage, full0 + 8 * slot);
+      }
     }
-    __syncthreads();  // the previous group's readers are done
-    if (tid < kWRows) idx[tid] = v;
-    if (!__syncthreads_or(v >= 0)) continue;
-    for (int e = tid; e < kWRows * kWCi; e += kThreads) {
-      const int r = e / kWCi;
-      const int c = e - r * kWCi;
-      const int32_t src = idx[r];
-      xs[r][c] = src >= 0 && ci0 + c < cin
-          ? __bfloat162float(x[static_cast<int64_t>(src) * cin + ci0 + c]) : 0.0f;
-    }
-    for (int e = tid; e < kWRows * kWCo; e += kThreads) {
-      const int r = e / kWCo;
-      const int c = e - r * kWCo;
-      dys[r][c] = idx[r] >= 0 && co0 + c < cout ? dy[(r0 + r) * cout + co0 + c] : 0.0f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int r = 0; r < kWRows; ++r) {
-      const float g = dys[r][lane];
+    return;
+  }
+
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  // step s's gather into its slot, one cp.async group (empty past the
+  // end): row r's 16-byte piece j (channels ci0 + 8j .. + 7) goes to core
+  // matrix (r / 8, j), byte (r / 8) * 1024 + j * 128 + (r % 8) * 16; an
+  // absent row, and channels past cin, are zeroed by shared-memory stores
+  auto gather = [&](int s) {
+    if (s < steps) {
+      const int g = live_s[s];
+      const uint32_t a_s = smem_addr(smem + (s % kStages) * L::kSlot);
 #pragma unroll
-      for (int j = 0; j < kWCiPerWarp; ++j) {
-        acc[j] = fmaf(xs[r][warp * kWCiPerWarp + j], g, acc[j]);
+      for (int i = 0; i < kWRows * (kWCi / 8) / kWG; ++i) {
+        const int e = tid + i * kWG;
+        const int r = e >> 3;
+        const int j = e & 7;
+        const int src = idx_s[g * kWRows + r];
+        const int ci = ci0 + 8 * j;
+        const uint32_t dst = a_s + (r >> 3) * 1024 + j * 128 + (r & 7) * 16;
+        if (src >= 0 && ci < cin) {
+          cp_async_16(dst, x + static_cast<int64_t>(src) * cin + ci, 16);
+        } else {
+          st_shared_zero16(dst);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+  float acc[CO / 2];
+#pragma unroll
+  for (int i = 0; i < CO / 2; ++i) acc[i] = 0.f;
+  // lane l of ldmatrix_x4_trans names row 16 kk + (l % 8) + 8 (l / 16) of
+  // piece 2 warp + (l / 8) % 2: the four 8x8 matrices are the warp's 16
+  // channels by the K step's 16 rows, transposed into wgmma's A fragment
+  const int lrow = (lane & 7) + ((lane >> 4) << 3);
+  const uint32_t lcol = (2 * warp + ((lane >> 3) & 1)) * 128;
+  // Steps s + 1 .. s + kStages - 2 are in flight while s is multiplied;
+  // after step s's barrier every warp is past step s - 1's ldmatrix, so
+  // step s + kStages - 2 may gather into step s - 2's slot. A fragments
+  // alternate between two register sets so one step's products stay in
+  // flight.
+  auto step = [&](int s, uint32_t (&a)[kWKSteps][4]) {
+    const int slot = s % kStages;
+    cp_async_wait<kStages - 3>();  // this thread's rows of step s have landed
+    named_barrier(1, kWG);         // and every other thread's
+    gather(s + kStages - 2);
+    const uint32_t a_s = smem_addr(smem + slot * L::kSlot);
+#pragma unroll
+    for (int kk = 0; kk < kWKSteps; ++kk) {
+      const int r = 16 * kk + lrow;
+      ldmatrix_x4_trans(a_s + (r >> 3) * 1024 + lcol + (r & 7) * 16, a[kk]);
+    }
+    mbar_wait(full0 + 8 * slot, (s / kStages) & 1);
+    __syncwarp();  // converged for the .aligned wgmma instructions
+    wgmma_fence();
+    const uint32_t b_s = a_s + L::kAStage;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+#pragma unroll
+      for (int kk = 0; kk < kWKSteps; ++kk) {
+        wgmma_tile<CO>(acc, a[kk], b_s + (i * kWKSteps + kk) * 16 * CO * 2);
+      }
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // the previous step's products have read its slot and A
+    if (s > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((s - 1) % kStages));
+    __syncwarp();
+  };
+  uint32_t a_even[kWKSteps][4], a_odd[kWKSteps][4];
+  for (int s = 0; s < kStages - 2; ++s) gather(s);
+  int s = 0;
+  for (; s + 1 < steps; s += 2) {
+    step(s, a_even);
+    step(s + 1, a_odd);
+  }
+  if (s < steps) step(s, a_even);
+  wgmma_wait<0>();
+
+  // accumulator element 4q + e: row (channel) 16 warp + lane / 4 + 8 (e /
+  // 2), column 8q + 2 (lane % 4) + e % 2
+  const int col = (lane & 3) * 2;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int ci = ci0 + 16 * warp + (lane >> 2) + 8 * h;
+    if (ci >= cin) continue;
+    float* row = dw + (static_cast<int64_t>(k) * cin + ci) * cout;
+#pragma unroll
+    for (int q = 0; q < CO / 8; ++q) {
+      const int co = 8 * q + col;
+      const float a = acc[4 * q + 2 * h];
+      const float b = acc[4 * q + 2 * h + 1];
+      if (co + 1 < cout && (cout & 1) == 0) {
+        red_add_v2(row + co, a, b);
+      } else {
+        if (co < cout) atomicAdd(row + co, a);
+        if (co + 1 < cout) atomicAdd(row + co + 1, b);
       }
     }
   }
-  const int co = co0 + lane;
-  if (co < cout) {
-#pragma unroll
-    for (int j = 0; j < kWCiPerWarp; ++j) {
-      const int ci = ci0 + warp * kWCiPerWarp + j;
-      if (ci < cin) atomicAdd(dw + (static_cast<int64_t>(k) * cin + ci) * cout + co, acc[j]);
-    }
+}
+
+// the launch shape of a wgrad call: row groups a thread block, and thread
+// blocks along the rows, for about kWgradBlocks thread blocks a launch
+void wgrad_grid(int64_t m, int cin, int kvol, int* groups_per_block, int64_t* ranges) {
+  const int64_t groups = cdiv(m, kWRows);
+  const int64_t other = static_cast<int64_t>(kvol) * cdiv(cin, kWCi);
+  int64_t r = cdiv(kWgradBlocks, other);
+  if (r > groups) r = groups;
+  if (r < 1) r = 1;
+  int64_t gpb = cdiv(groups, r);
+  if (gpb > kMaxGroups) gpb = kMaxGroups;
+  if (gpb < 1) gpb = 1;
+  *groups_per_block = static_cast<int>(gpb);
+  *ranges = cdiv(groups, gpb);
+}
+
+int co_tile(int cout) { return cout <= 32 ? 32 : cout <= 64 ? 64 : cout <= 128 ? 128 : 256; }
+
+// calls f(Int<C>) for a width of 32, 64, 128 or 256; false for another
+template <typename F>
+bool by_width(int c, F&& f) {
+  switch (c) {
+    case 32: f(Int<32>{}); return true;
+    case 64: f(Int<64>{}); return true;
+    case 128: f(Int<128>{}); return true;
+    case 256: f(Int<256>{}); return true;
+    default: return false;
   }
 }
 
-bool widths_ok(int64_t m, int64_t n, int cin, int cout, int kvol) {
-  return m >= 0 && n >= 0 && n <= 0x7fffffff && cin >= 1 && cin <= kMaxC && cout >= 1 &&
-         cout <= kMaxC && kvol >= 1 && kvol <= 65535;
+bool dgrad_ok(int64_t m, int64_t n, int cin, int cout, int kvol) {
+  return m >= 0 && n >= 0 && n <= 0x7fffffff && (cin == 32 || cin == 64 || cin == 128 || cin == 256) &&
+         cout >= 4 && cout <= kMaxC && cout % 4 == 0 && kvol >= 1 && kvol <= kMaxK &&
+         cdiv(m, kBM) * dgrad_groups(m, cin, kvol) * (cin / dgrad_ci_tile(cin)) <= 0x7fffffff;
 }
 
-// rows a wgrad thread block sums: about 2000 thread blocks a launch, at
-// least one 32-row group each
-int64_t wgrad_rows_per_block(int64_t m, int cin, int cout, int kvol) {
-  const int64_t other = static_cast<int64_t>(kvol) * cdiv(cin, kWCi) * cdiv(cout, kWCo);
-  int64_t blocks = cdiv(2048, other);
-  const int64_t groups = cdiv(m, kWRows);
-  if (blocks > groups) blocks = groups;
-  if (blocks < 1) blocks = 1;
-  return cdiv(groups, blocks) * kWRows;
+bool wgrad_ok(int64_t m, int64_t n, int cin, int cout, int kvol) {
+  return m >= 0 && n >= 0 && n <= 0x7fffffff && cin >= 8 && cin <= kMaxC && cin % 8 == 0 &&
+         cout >= 1 && cout <= kMaxC && kvol >= 1 && kvol <= kMaxK && cdiv(m, kWRows) <= 0x7fffffff;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Both entries launch on `stream` without synchronising, zero their output
-// first (an asynchronous memset), and return the CUDA error of the launch
-// (0 on success) or cudaErrorInvalidValue for arguments they do not take.
-// The caller owns every buffer.
-
-int gather_conv_dgrad(const void* dy, const void* nbr, const void* w, void* dx, int64_t m,
-                      int64_t n, int cin, int cout, int kvol, void* stream) {
-  if (!widths_ok(m, n, cin, cout, kvol) || cdiv(m, kDRows) > 0x7fffffff) {
-    return static_cast<int>(cudaErrorInvalidValue);
+// The launch shape of a call (which: 0 dgrad, 1 wgrad): thread blocks,
+// offsets (dgrad) or rows (wgrad) a thread block, slots of the ring, and
+// the bytes of scratch gather_conv_wgrad needs (0 for dgrad). Returns
+// cudaErrorInvalidValue for arguments the kernel does not take.
+int gather_conv_bwd_launch_shape(int which, int64_t m, int cin, int cout, int kvol, int64_t* blocks,
+                                 int* per_block, int* stages, int64_t* scratch_bytes) {
+  if (which == 0) {
+    if (!dgrad_ok(m, 0, cin, cout, kvol)) return static_cast<int>(cudaErrorInvalidValue);
+    const int groups = dgrad_groups(m, cin, kvol);
+    *blocks = cdiv(m, kBM) * groups * (cin / dgrad_ci_tile(cin));
+    *per_block = static_cast<int>(cdiv(kvol, groups));
+    by_width(dgrad_ci_tile(cin), [&](auto ci) { *stages = DgradLayout<decltype(ci)::value>::kStages; });
+    *scratch_bytes = 0;
+    return 0;
   }
+  if (!wgrad_ok(m, 0, cin, cout, kvol)) return static_cast<int>(cudaErrorInvalidValue);
+  int gpb = 1;
+  int64_t ranges = 1;
+  wgrad_grid(m, cin, kvol, &gpb, &ranges);
+  *blocks = ranges * kvol * cdiv(cin, kWCi);
+  *per_block = gpb * kWRows;
+  by_width(co_tile(cout), [&](auto co) {
+    *stages = WgradLayout<decltype(co)::value>::kStages;
+    *scratch_bytes = cdiv(m, kWRows) * WgradLayout<decltype(co)::value>::kBStage;
+  });
+  return 0;
+}
+
+// Both entries launch on `stream` without synchronising, zero their output
+// first (an asynchronous memset), and return the CUDA error of the last
+// launch (0 on success) or cudaErrorInvalidValue for arguments they do not
+// take. The caller owns every buffer: dy, wt and dx 16-byte aligned for
+// dgrad, wt being w^T zero-padded to (K, coutp, cin), coutp the next
+// multiple of 32, cut into tiles of min(cin, 128) columns (ci) and packed
+// in 16-row stages as (K, cin / tile, coutp / 16, tile / 8, 2, 8, 8)
+// (kernels/gather_conv.py pack_dgrad_weights); x and dw 16-byte aligned
+// for wgrad, with scratch of the bytes the launch shape names.
+
+int gather_conv_dgrad(const void* dy, const void* nbr, const void* wt, void* dx, int64_t m,
+                      int64_t n, int cin, int cout, int kvol, void* stream) {
+  if (!dgrad_ok(m, n, cin, cout, kvol)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(dx, 0, sizeof(float) * n * cin, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (m == 0 || n == 0) return 0;
-  const size_t smem = dgrad_smem(cout);
-  err = cudaFuncSetAttribute(dgrad_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(static_cast<unsigned>(cdiv(m, kDRows)), static_cast<unsigned>(cdiv(cin, kDCi)));
-  dgrad_kernel<<<grid, kThreads, smem, s>>>(
-      static_cast<const float*>(dy), static_cast<const int32_t*>(nbr),
-      static_cast<const __nv_bfloat16*>(w), static_cast<float*>(dx), m, n, cin, cout, kvol);
-  return static_cast<int>(cudaGetLastError());
+  const int groups = dgrad_groups(m, cin, kvol);
+  const int64_t blocks = cdiv(m, kBM) * groups * (cin / dgrad_ci_tile(cin));
+  const int coutp = (cout + kKC - 1) / kKC * kKC;
+  int rc = 0;
+  by_width(dgrad_ci_tile(cin), [&](auto ci) {
+    constexpr int CI = decltype(ci)::value;
+    const size_t smem = DgradLayout<CI>::bytes(coutp);
+    cudaError_t e = cudaFuncSetAttribute(dgrad_kernel<CI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+    if (e == cudaSuccess) {
+      dgrad_kernel<CI><<<static_cast<unsigned>(blocks), kThreads, smem, s>>>(
+          static_cast<const float*>(dy), static_cast<const int32_t*>(nbr),
+          static_cast<const __nv_bfloat16*>(wt), static_cast<float*>(dx), m, n, cin, cout, kvol, groups);
+      e = cudaGetLastError();
+    }
+    rc = static_cast<int>(e);
+  });
+  return rc;
 }
 
-int gather_conv_wgrad(const void* x, const void* nbr, const void* dy, void* dw, int64_t m,
-                      int64_t n, int cin, int cout, int kvol, void* stream) {
-  if (!widths_ok(m, n, cin, cout, kvol)) return static_cast<int>(cudaErrorInvalidValue);
+int gather_conv_wgrad(const void* x, const void* nbr, const void* dy, void* dw, void* scratch,
+                      int64_t m, int64_t n, int cin, int cout, int kvol, void* stream) {
+  if (!wgrad_ok(m, n, cin, cout, kvol)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = cudaMemsetAsync(dw, 0, sizeof(float) * kvol * cin * cout, s);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (m == 0) return 0;
-  const int64_t rows = wgrad_rows_per_block(m, cin, cout, kvol);
-  const dim3 grid(static_cast<unsigned>(cdiv(m, rows)), static_cast<unsigned>(kvol),
-                  static_cast<unsigned>(cdiv(cin, kWCi) * cdiv(cout, kWCo)));
-  wgrad_kernel<<<grid, kThreads, 0, s>>>(
-      static_cast<const __nv_bfloat16*>(x), static_cast<const int32_t*>(nbr),
-      static_cast<const float*>(dy), static_cast<float*>(dw), m, n, cin, cout, kvol, rows);
-  return static_cast<int>(cudaGetLastError());
+  int gpb = 1;
+  int64_t ranges = 1;
+  wgrad_grid(m, cin, kvol, &gpb, &ranges);
+  int rc = 0;
+  by_width(co_tile(cout), [&](auto co) {
+    constexpr int CO = decltype(co)::value;
+    using L = WgradLayout<CO>;
+    auto dys = static_cast<__nv_bfloat16*>(scratch);
+    wgrad_split_kernel<CO><<<static_cast<unsigned>(cdiv(m, kWRows)), kSplitThreads, 0, s>>>(
+        static_cast<const float*>(dy), static_cast<const int32_t*>(nbr), dys, m, cout, kvol);
+    cudaError_t e = cudaGetLastError();
+    if (e == cudaSuccess) {
+      e = cudaFuncSetAttribute(wgrad_kernel<CO>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
+    }
+    if (e == cudaSuccess) {
+      const dim3 grid(static_cast<unsigned>(ranges), static_cast<unsigned>(kvol),
+                      static_cast<unsigned>(cdiv(cin, kWCi)));
+      wgrad_kernel<CO><<<grid, kThreads, L::kBytes, s>>>(
+          static_cast<const __nv_bfloat16*>(x), static_cast<const int32_t*>(nbr), dys,
+          static_cast<float*>(dw), m, n, cin, cout, kvol, gpb);
+      e = cudaGetLastError();
+    }
+    rc = static_cast<int>(e);
+  });
+  return rc;
 }
 
 }  // extern "C"

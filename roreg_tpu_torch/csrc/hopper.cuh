@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels:
 // shared-memory addresses and named barriers, mbarriers, the bulk-copy
-// engine, 16-byte cp.async, ldmatrix, and wgmma.mma_async (bf16 in, f32
-// accumulators in registers) with A from registers or from a shared-memory
-// descriptor and B from a shared-memory descriptor.
+// engine, 16-byte cp.async, ldmatrix (plain and transposed), vector f32
+// reductions in global memory, the split of f32 values into three bf16
+// terms, and wgmma.mma_async (bf16 in, f32 accumulators in registers) with
+// A from registers or from a shared-memory descriptor and B from a
+// shared-memory descriptor.
 //
 // Operand layout in shared memory (wgmma's K-major layout without swizzle):
 // 8x8 core matrices of 128 contiguous bytes (8 rows of 16 bytes, 8 bf16
@@ -107,6 +109,50 @@ __device__ __forceinline__ void ldmatrix_x4(uint32_t addr, uint32_t (&a)[4]) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
                : "r"(addr));
+}
+
+// the transposed load: lane t receives, of each 8x8 matrix whose 8 rows of
+// 16 bytes lanes 8i..8i+7 name, the elements (row 2 (t % 4) + e, column
+// t / 4) for e = 0, 1, e = 0 in the low half
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t addr, uint32_t (&a)[4]) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(a[0]), "=r"(a[1]), "=r"(a[2]), "=r"(a[3])
+               : "r"(addr));
+}
+
+// dst[0] += a, dst[1] += b in global memory as one vector reduction
+// (sm_90); dst is 8-byte aligned
+__device__ __forceinline__ void red_add_v2(float* dst, float a, float b) {
+  atomicAdd(reinterpret_cast<float2*>(dst), make_float2(a, b));
+}
+
+// v = hi + mid + lo + r with |r| <= 2^-24 |v|: three bf16 terms, each the
+// rounding of what the ones before leave (the differences are exact in
+// f32), so products with a bf16 operand summed in f32 carry f32's precision
+__device__ __forceinline__ void split_bf16x3(float v, uint32_t (&t)[3]) {
+  const __nv_bfloat16 hi = __float2bfloat16_rn(v);
+  const float r1 = v - __bfloat162float(hi);
+  const __nv_bfloat16 mid = __float2bfloat16_rn(r1);
+  const __nv_bfloat16 lo = __float2bfloat16_rn(r1 - __bfloat162float(mid));
+  t[0] = __bfloat16_as_ushort(hi);
+  t[1] = __bfloat16_as_ushort(mid);
+  t[2] = __bfloat16_as_ushort(lo);
+}
+
+// 8 f32 values -> their three bf16 terms, 8 to a 16-byte word each (value
+// i in the i-th bf16 of the word)
+__device__ __forceinline__ void split8_bf16x3(const float (&v)[8], uint4 (&out)[3]) {
+  uint32_t w[3][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    uint32_t a[3], b[3];
+    split_bf16x3(v[2 * i], a);
+    split_bf16x3(v[2 * i + 1], b);
+#pragma unroll
+    for (int t = 0; t < 3; ++t) w[t][i] = a[t] | (b[t] << 16);
+  }
+#pragma unroll
+  for (int t = 0; t < 3; ++t) out[t] = make_uint4(w[t][0], w[t][1], w[t][2], w[t][3]);
 }
 
 __device__ __forceinline__ void wgmma_fence() {

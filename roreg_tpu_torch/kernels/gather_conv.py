@@ -39,6 +39,11 @@ __all__ = [
     "gather_conv_dgrad_kernel",
     "gather_conv_wgrad_kernel",
     "bwd_work",
+    "bwd_kernel_widths",
+    "pack_dgrad_weights",
+    "split_bf16x3",
+    "DGRAD_CINS",
+    "DGRAD_CI_TILE",
 ]
 
 
@@ -206,23 +211,107 @@ def gather_conv_wgrad_plain(
     return dw
 
 
+# dgrad's dX widths: Cin is zero-padded to the next of these, and a thread
+# block computes a tile of at most DGRAD_CI_TILE of them (one wgmma N)
+DGRAD_CINS = (32, 64, 128, 256)
+DGRAD_CI_TILE = 128
+
+
+def split_bf16x3(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The backward kernels' split of an f32 tensor into three bf16 terms
+    (``csrc/hopper.cuh`` ``split_bf16x3``): ``hi = bf16(t)``, ``mid =
+    bf16(t - hi)``, ``lo = bf16(t - hi - mid)``, each difference exact in
+    f32, so ``hi + mid + lo`` is within ``2**-24 * |t|`` of ``t`` and the
+    three products with a bf16 operand, summed in f32, keep f32's
+    precision."""
+    t = t.float()
+    hi = t.bfloat16()
+    r = t - hi.float()
+    mid = r.bfloat16()
+    return hi, mid, (r - mid.float()).bfloat16()
+
+
+def pack_dgrad_weights(weights: torch.Tensor) -> torch.Tensor:
+    """dgrad's B operand: ``weights[k]^T`` zero-padded to (Cout_p, Cin_p),
+    Cout_p the next multiple of 32 and Cin_p the next of ``DGRAD_CINS``,
+    cut into tiles of T = min(Cin_p, ``DGRAD_CI_TILE``) input channels, in
+    stages of 16 output channels as :func:`pack_weights` lays out the
+    forward's weights: (K, Cin_p/T, Cout_p/16, T/8, 2, 8, 8), so element
+    (co, ci) of offset k sits in stage ``(k * Cin_p/T + ci // T) * Cout_p/16
+    + co // 16`` at (ci % T // 8, co % 16 // 8, ci % 8, co % 8)."""
+    k, cin, cout = weights.shape
+    cin_p, cout_p = next(c for c in DGRAD_CINS if c >= cin), -(-cout // 32) * 32
+    if (cin_p, cout_p) != (cin, cout):
+        weights = torch.nn.functional.pad(weights, (0, cout_p - cout, 0, cin_p - cin))
+    tile = min(cin_p, DGRAD_CI_TILE)
+    # one copy: (k, ci, co) -> (k, ci // T, co // 16, ci % T // 8, co % 16 // 8, ci % 8, co % 8)
+    return (weights.view(k, cin_p // tile, tile // 8, 8, cout_p // 16, 2, 8)
+            .permute(0, 1, 4, 2, 5, 3, 6).contiguous())
+
+
+def _pad_cols(t: torch.Tensor, width: int) -> torch.Tensor:
+    return t if t.shape[-1] == width else torch.nn.functional.pad(t, (0, width - t.shape[-1]))
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t``, or a copy of it where its data is not 16-byte aligned (the
+    kernels read their rows 16 bytes at a time)."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def bwd_kernel_widths(which: str, cin: int, cout: int) -> tuple[int, int]:
+    """The (Cin, Cout) a dgrad or wgrad launch runs at for these widths:
+    dgrad pads Cin to the next of ``DGRAD_CINS`` and Cout to a multiple of
+    4 (its dY rows are read 16 bytes at a time); wgrad pads Cin to a
+    multiple of 8 (its X rows are gathered 16 bytes at a time)."""
+    if which == "dgrad":
+        return next(c for c in DGRAD_CINS if c >= cin), -(-cout // 4) * 4
+    return -(-cin // 8) * 8, cout
+
+
 class GatherConvBwdKernel(CudaKernel):
     """Wrapper of one of ``csrc/gather_conv_bwd.cu``'s two kernels
-    (``which`` is "dgrad" or "wgrad"): checks its arguments, launches on
-    the current stream, and counts launches in ``launches`` (one per
-    launch, nowhere else)."""
+    (``which`` is "dgrad" or "wgrad"): checks its arguments, pads the
+    widths the kernel does not take (:func:`bwd_kernel_widths`; the extra
+    columns are cut off the output), packs dgrad's weights and allocates
+    wgrad's scratch, launches on the current stream, and counts launches
+    in ``launches`` (one per call, nowhere else; wgrad's call runs a split
+    pass before its kernel)."""
 
     source = "gather_conv_bwd.cu"
 
     def __init__(self, which: str) -> None:
         super().__init__()
         self.which = which
+        self._shapes: dict[tuple[int, int, int, int], dict] = {}
 
     def _bind(self, lib: ctypes.CDLL) -> None:
         vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        for fn in (lib.gather_conv_dgrad, lib.gather_conv_wgrad):
-            fn.restype = ci
-            fn.argtypes = [vp, vp, vp, vp, i64, i64, ci, ci, ci, vp]
+        lib.gather_conv_dgrad.restype = ci
+        lib.gather_conv_dgrad.argtypes = [vp, vp, vp, vp, i64, i64, ci, ci, ci, vp]
+        lib.gather_conv_wgrad.restype = ci
+        lib.gather_conv_wgrad.argtypes = [vp, vp, vp, vp, vp, i64, i64, ci, ci, ci, vp]
+        lib.gather_conv_bwd_launch_shape.restype = ci
+        lib.gather_conv_bwd_launch_shape.argtypes = [
+            ci, i64, ci, ci, ci, ctypes.POINTER(i64), ctypes.POINTER(ci), ctypes.POINTER(ci),
+            ctypes.POINTER(i64)]
+
+    def launch_shape(self, m: int, cin: int, cout: int, k: int) -> dict:
+        """The launch shape of a call with an (m, k) table at these widths:
+        thread blocks, offsets (dgrad) or rows (wgrad) a thread block, slots
+        of its ring, and wgrad's scratch bytes (the split dY terms)."""
+        key = (m, cin, cout, k)
+        if key not in self._shapes:
+            kin, kout = bwd_kernel_widths(self.which, cin, cout)
+            blocks, scratch = ctypes.c_int64(), ctypes.c_int64()
+            per, stages = ctypes.c_int(), ctypes.c_int()
+            rc = self._load().gather_conv_bwd_launch_shape(
+                0 if self.which == "dgrad" else 1, m, kin, kout, k, blocks, per, stages, scratch)
+            self.check_rc(f"gather_conv {self.which}", rc)
+            self._shapes[key] = {
+                "blocks": blocks.value, "offsets_per_block" if self.which == "dgrad" else "rows_per_block":
+                per.value, "stages": stages.value, "scratch_bytes": scratch.value}
+        return dict(self._shapes[key])
 
     def __call__(
         self, feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor, dy: torch.Tensor
@@ -252,19 +341,28 @@ class GatherConvBwdKernel(CudaKernel):
         for name, t in (("feats", feats), ("nbr", nbr), ("weights", weights), ("dy", dy)):
             if not t.is_contiguous():
                 raise ValueError(f"gather_conv {self.which} kernel: {name} must be contiguous")
+        kin, kout = bwd_kernel_widths(self.which, c, cout)
         lib = self._load()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             if self.which == "dgrad":
-                out = torch.empty((n, c), dtype=torch.float32, device=dev)
-                rc = lib.gather_conv_dgrad(dy.data_ptr(), nbr.data_ptr(), weights.data_ptr(),
-                                           out.data_ptr(), m, n, c, cout, k, stream)
+                dy_k = _aligned(_pad_cols(dy, kout))
+                wt = pack_dgrad_weights(weights)
+                out = torch.empty((n, kin), dtype=torch.float32, device=dev)
+                rc = lib.gather_conv_dgrad(dy_k.data_ptr(), nbr.data_ptr(), wt.data_ptr(),
+                                           out.data_ptr(), m, n, kin, kout, k, stream)
             else:
-                out = torch.empty((k, c, cout), dtype=torch.float32, device=dev)
-                rc = lib.gather_conv_wgrad(feats.data_ptr(), nbr.data_ptr(), dy.data_ptr(),
-                                           out.data_ptr(), m, n, c, cout, k, stream)
+                x = _aligned(_pad_cols(feats, kin))
+                scratch = torch.empty(self.launch_shape(m, c, cout, k)["scratch_bytes"],
+                                      dtype=torch.uint8, device=dev)
+                out = torch.empty((k, kin, cout), dtype=torch.float32, device=dev)
+                rc = lib.gather_conv_wgrad(x.data_ptr(), nbr.data_ptr(), dy.data_ptr(), out.data_ptr(),
+                                           scratch.data_ptr(), m, n, kin, cout, k, stream)
         self.check_rc(f"gather_conv {self.which}", rc)
         self.launches += 1
+        if kin != c:
+            out = out[..., :c, :] if self.which == "wgrad" else out[:, :c]
+            out = out.contiguous()
         return out
 
 

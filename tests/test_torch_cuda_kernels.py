@@ -609,3 +609,143 @@ def test_gather_conv_with_a_gradient_runs_the_kernels_on_gpu(cuda_device):
     # one bf16 rounding of each gradient: relative 2^-8 of its value
     for got, want in ((x.grad, x2.grad), (w.grad, w2.grad)):
         assert float((got - want.bfloat16().float()).abs().max()) <= BWD_ATOL + float(want.abs().max()) * 2 ** -8
+
+
+@pytest.mark.cuda
+def test_gather_conv_bwd_kernels_on_an_empty_table_on_gpu(cuda_device):
+    """A table whose entries are all -1: one launch each, and dX and dW are
+    exactly zero (every tile and row group leaves after reading its
+    entries)."""
+    from roreg_tpu_torch.kernels.gather_conv import gather_conv_dgrad_kernel, gather_conv_wgrad_kernel
+
+    n, m, cin, cout = 700, 1000, 64, 128
+    nbr = torch.full((m, 27), -1, dtype=torch.int32, device=cuda_device)
+    feats = torch.randn(n, cin, device=cuda_device).bfloat16()
+    w = torch.randn(27, cin, cout, device=cuda_device).bfloat16()
+    dy = torch.randn(m, cout, device=cuda_device)
+    before = (gather_conv_dgrad_kernel.launches, gather_conv_wgrad_kernel.launches)
+    dx = gather_conv_dgrad_kernel(feats, nbr, w, dy)
+    dw = gather_conv_wgrad_kernel(feats, nbr, w, dy)
+    torch.cuda.synchronize()
+    assert (gather_conv_dgrad_kernel.launches, gather_conv_wgrad_kernel.launches) == (before[0] + 1, before[1] + 1)
+    assert dx.shape == (n, cin) and dw.shape == (27, cin, cout)
+    assert not bool(dx.any()) and not bool(dw.any())
+
+
+@pytest.mark.cuda
+def test_gather_conv_bwd_kernels_sum_repeated_targets_on_gpu(cuda_device):
+    """A custom region in which one row's two offsets name the same source
+    row (and other rows name it too): dgrad's atomic adds must sum every
+    product into it, and wgrad must count the row once per offset."""
+    from roreg_tpu_torch.kernels.gather_conv import (
+        gather_conv_dgrad, gather_conv_dgrad_plain, gather_conv_wgrad, gather_conv_wgrad_plain,
+    )
+
+    rng = np.random.default_rng(5)
+    n, m, kvol, cin, cout = 300, 200, 9, 32, 64
+    nbr = rng.integers(-1, n, size=(m, kvol)).astype(np.int32)
+    nbr[7, 2] = nbr[7, 6] = 17  # one row's two offsets, one source row
+    nbr[130, 2] = nbr[150, 4] = 17
+    nbr = torch.from_numpy(nbr).to(cuda_device)
+    feats = torch.from_numpy(rng.normal(size=(n, cin)).astype(np.float32)).to(cuda_device).bfloat16()
+    w = (torch.randn(kvol, cin, cout, device=cuda_device) * (2 / (kvol * cin)) ** 0.5).bfloat16()
+    dy = torch.randn(m, cout, device=cuda_device)
+    dx = gather_conv_dgrad(feats, nbr, w, dy)
+    dw = gather_conv_wgrad(feats, nbr, w, dy)
+    torch.cuda.synchronize()
+    want = gather_conv_dgrad_plain(feats, nbr, w, dy)
+    assert float((dx - want).abs().max()) <= BWD_ATOL
+    wf, d = w.float(), dy
+    row17 = d[7] @ wf[2].T + d[7] @ wf[6].T + d[130] @ wf[2].T + d[150] @ wf[4].T
+    others = [(r, k) for r, k in zip(*np.nonzero(nbr.cpu().numpy() == 17)) if (r, k) not in
+              {(7, 2), (7, 6), (130, 2), (150, 4)}]
+    for r, k in others:
+        row17 = row17 + d[r] @ wf[k].T
+    assert float((dx[17] - row17).abs().max()) <= BWD_ATOL
+    assert float((dw - gather_conv_wgrad_plain(feats, nbr, w, dy)).abs().max()) <= BWD_ATOL
+
+
+@pytest.mark.cuda
+def test_gather_conv_bwd_kernels_at_a_coarse_level_on_gpu(cuda_device):
+    """The coarsest level's shape: Cin = Cout = 256, K = 27, 4096 capacity
+    rows of which the first 412 are live (7 live tiles of 64): dgrad cuts
+    each tile's offsets between thread blocks, and both kernels match their
+    plain versions."""
+    from roreg_tpu_torch.kernels.gather_conv import (
+        gather_conv_dgrad_kernel, gather_conv_dgrad_plain, gather_conv_wgrad_kernel, gather_conv_wgrad_plain,
+    )
+
+    rng = np.random.default_rng(27)
+    cap, live, c = 4096, 412, 256
+    nbr = rng.integers(0, live, size=(cap, 27))
+    nbr[rng.random((cap, 27)) < 0.5] = -1
+    nbr[live:] = -1
+    nbr = torch.from_numpy(nbr.astype(np.int32)).to(cuda_device)
+    assert int((nbr >= 0).view(-1, 64 * 27).any(1).sum()) == 7
+    assert gather_conv_dgrad_kernel.launch_shape(cap, c, c, 27)["offsets_per_block"] < 27
+    feats = torch.from_numpy(rng.normal(size=(cap, c)).astype(np.float32)).to(cuda_device).bfloat16()
+    w = (torch.randn(27, c, c, device=cuda_device) * (2 / (27 * c)) ** 0.5).bfloat16()
+    dy = torch.randn(cap, c, device=cuda_device)
+    dy[live:] = 0.0
+    dx = gather_conv_dgrad_kernel(feats, nbr, w, dy)
+    dw = gather_conv_wgrad_kernel(feats, nbr, w, dy)
+    torch.cuda.synchronize()
+    assert float((dx - gather_conv_dgrad_plain(feats, nbr, w, dy)).abs().max()) <= BWD_ATOL
+    assert float((dw - gather_conv_wgrad_plain(feats, nbr, w, dy)).abs().max()) <= BWD_ATOL
+    assert not bool(dx[live:].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout", [(16, 16), (48, 24), (3, 7)])
+def test_gather_conv_bwd_kernels_pad_widths_of_40_offsets_on_gpu(cuda_device, cin, cout):
+    """K = 40 (more offsets than one dgrad thread block lists) at widths the
+    kernels do not take natively: the wrapper pads Cin (and dgrad's odd
+    Cout; wgrad adds an odd Cout's columns one at a time), one launch a
+    call, and both match their plain versions."""
+    from roreg_tpu_torch.kernels.gather_conv import (
+        gather_conv_dgrad_kernel, gather_conv_dgrad_plain, gather_conv_wgrad_kernel, gather_conv_wgrad_plain,
+    )
+
+    rng = np.random.default_rng(cin * cout)
+    n, m, kvol = 900, 64 * 5 + 11, 40
+    nbr = torch.from_numpy(_gather_table(rng, m, n, kvol)).to(cuda_device)
+    feats = torch.from_numpy(rng.normal(size=(n, cin)).astype(np.float32)).to(cuda_device).bfloat16()
+    w = (torch.randn(kvol, cin, cout, device=cuda_device) * (2 / (kvol * cin)) ** 0.5).bfloat16()
+    dy = torch.randn(m, cout, device=cuda_device)
+    before = (gather_conv_dgrad_kernel.launches, gather_conv_wgrad_kernel.launches)
+    dx = gather_conv_dgrad_kernel(feats, nbr, w, dy)
+    dw = gather_conv_wgrad_kernel(feats, nbr, w, dy)
+    assert (gather_conv_dgrad_kernel.launches, gather_conv_wgrad_kernel.launches) == (before[0] + 1, before[1] + 1)
+    torch.cuda.synchronize()
+    assert dx.shape == (n, cin) and dw.shape == (kvol, cin, cout)
+    assert float((dx - gather_conv_dgrad_plain(feats, nbr, w, dy)).abs().max()) <= BWD_ATOL
+    assert float((dw - gather_conv_wgrad_plain(feats, nbr, w, dy)).abs().max()) <= BWD_ATOL
+
+
+BWD_OUT_OF_RANGE = """
+import torch
+from roreg_tpu_torch.kernels.gather_conv import gather_conv_{which}_kernel as kernel
+nbr = torch.full((64, 27), -1, dtype=torch.int32, device="cuda")
+nbr[0, 13] = 5
+feats = torch.ones(5, 32, dtype=torch.bfloat16, device="cuda")
+kernel(feats, nbr, torch.ones(27, 32, 32, dtype=torch.bfloat16, device="cuda"),
+       torch.ones(64, 32, device="cuda"))
+torch.cuda.synchronize()
+"""
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["dgrad", "wgrad"])
+def test_gather_conv_bwd_kernels_raise_on_out_of_range_entries_on_gpu(cuda_device, which):
+    """An entry >= N makes dgrad and wgrad trap, which the next
+    synchronisation raises as a CUDA error (in a child process, as for the
+    forward)."""
+    import subprocess
+    import sys
+
+    run = subprocess.run(
+        [sys.executable, "-c", BWD_OUT_OF_RANGE.format(which=which)], capture_output=True, text=True,
+        timeout=300, cwd=Path(__file__).resolve().parents[1],
+    )
+    assert run.returncode != 0
+    assert "CUDA error" in run.stderr
