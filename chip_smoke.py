@@ -34,12 +34,24 @@ Phases, each ending in one flushed progress line on stderr:
    main path's own upload of one chunk of cloud 0; error, times, bound and a
    library call's time for each, and halo_conv's and up_conv's launch
    shapes (output blocks per thread block, weight stages);
+3e. f32 kernels: with f32 operands and TF32 off (restored after), each
+   conv kernel against its f32 plain version, within ``F32_RTOL`` of the
+   output's largest magnitude: gather_conv at phase 3's 11 shapes (one
+   launch over the stacked two-term split operands at 3 Cin), dgrad and
+   wgrad at phase 3d's 20 convs (a launch per bf16 term of W or X), and
+   block_gather (f32 rows), halo_conv (stacked) and up_conv (its f32
+   entry, a loop over the terms) at phase 3b's shapes and at the bench's
+   block capacities; error, times beside the bf16 rows and bounds at f32
+   operand bytes;
 3c. reference: ``register_pair`` at a small configuration on the GPU and on
    the CPU (plain versions), gather engine and block engine, whose
    descriptors must agree; and the RM matcher on both devices fed the same
    sampled descriptors and keys, whose Sinkhorn matching scores and matches
    must agree. This also brings up every library the slices call, so the
    later phases time a warm process;
+3f. f32 reference: phase 3c's describes at ``backbone_compute_dtype=None``
+   on both engines, within ``F32_REFERENCE_ATOL`` and
+   ``F32_REFERENCE_MEAN_ATOL``;
 4. gather slice: ``RegistrationPipeline.register_pair`` on a seeded
    20000-point pair at the full-width gather-engine configuration with
    seeded random weights;
@@ -50,6 +62,9 @@ Phases, each ending in one flushed progress line on stderr:
    package's default (block engine, RM matcher with 100 Sinkhorn
    iterations, top-match selection, ET, yohoo), full width; no block may be
    dropped, and RM's matches must be a valid set;
+6f. f32 full width: phase 6 and phase 4 at ``backbone_compute_dtype=None``:
+   the same conv launches a chunk as at bf16 (skip_concat none: the f32
+   path concatenates with ``torch.cat``), finite rigid transforms;
 7. quality: the committed trained weights (``checkpoints/quality_full/``)
    under ``quality_full_config()`` (conv1 kernel 5, chunks of 6 rotations)
    on the JAX package's held-out benchmark scenes (4 + 4 scenes of 7
@@ -108,10 +123,23 @@ Phases, each ending in one flushed progress line on stderr:
    builds apart, and peak memory; then ``PROFILED_STEPS`` more steps on the
    overfit's batch under ``torch.profiler``: device time per step of each
    conv kernel and of everything else, and the device busy share;
+11c. f32 backbone training: ``cli.train --component backbone`` at
+   ``backbone_compute_dtype=None`` for ``BACKBONE_F32_STEPS`` steps (a step
+   launches gather_conv 40, dgrad 80 and wgrad 80 times), every loss
+   finite, and the 12-step overfit at f32 must lower the loss;
 11b. zoo: each ``RESUNET_VARIANTS`` and ``SIMPLENET_VARIANTS`` entry's
    gather-engine forward on one full-width pyramid of cloud 0, kernels
    against plain versions, at phase 3c's tolerance; each forward must
-   launch gather_conv once per gather conv.
+   launch gather_conv once per gather conv;
+12. device-built pyramids: ``PipelineConfig(engine="gather",
+   host_maps=False)`` at full width: all 60 rotations of both clouds
+   built on the card bit-equal to the host builder, the describe within
+   1e-3 of the host-map describe, ``register_pair`` a rigid motion; the
+   device and host build seconds of a cloud;
+13. distribution on NCCL in a world of one: ``shard_train_step`` on a GF
+   batch against the plain step, ``eval_pairs_sharded`` and
+   ``pair_stacks_sharded`` against the batched stage,
+   ``all_gather_metrics``.
 
 Each slice checks the descriptor shapes and norms, the launch counts of
 every kernel (zeroed just before the run: each kernel of the path ran
@@ -157,6 +185,22 @@ DENSE_RTOL = 1e-5
 # RM on the two devices fed the same descriptors: f32 GEMMs (no TF32) and
 # 100 Sinkhorn iterations summed in another order
 RM_SCORE_ATOL = 1e-3
+# f32 operands (phase 3e): two bf16 terms of each (three products) leave
+# about 3 * 2^-18 of each product; each kernel is held to 1e-4 of its
+# output's largest magnitude against its f32 plain version, TF32 off
+F32_RTOL = 1e-4
+# phase 3f: small-config descriptors at f32 convs, GPU kernels vs CPU plain
+# versions: no bf16 rounding of activations to flip, only the kernels'
+# 1e-5 split error carried through 20 convs and their norms
+F32_REFERENCE_ATOL = 1e-3
+F32_REFERENCE_MEAN_ATOL = 1e-4
+# phase 11c: backbone training steps at f32 convs
+BACKBONE_F32_STEPS = 10
+# phase 13: an Adam step moves an element whose gradient is rounding-sized
+# (below this share of the largest) by up to the step size either way
+# (ROADMAP C19); every other parameter element is held to 1e-5 relative
+DIST_NOISE_GRAD = 1e-5
+DIST_RTOL = 1e-5
 
 # (table, Cin, Cout, uses per forward) of ResUNetBN2C's 20 gather convs
 CONV_SHAPES = [
@@ -316,12 +360,23 @@ def phase_build() -> dict:
     return secs
 
 
-def phase_kernel(cfg, pair: dict, seed: int, device: str = "cuda") -> tuple[dict, list]:
+def _f32_err(out: torch.Tensor, ref: torch.Tensor) -> float:
+    """An f32 kernel's error: its largest gap to the plain version over the
+    plain version's largest magnitude."""
+    return float((out - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def phase_kernel(cfg, pair: dict, seed: int, device: str = "cuda",
+                 dtype: torch.dtype = torch.bfloat16) -> tuple[dict, list]:
+    """Phase 3 (bf16 operands; one rotation's table and the chunk's) or, at
+    f32, phase 3e's gather_conv (the chunk's tables; the error relative to
+    the output's largest magnitude, the bound at f32 operand bytes)."""
     from roreg_tpu_torch.core.group import get_group
     from roreg_tpu_torch.kernels.gather_conv import conv_work, gather_conv_kernel, gather_conv_plain
     from roreg_tpu_torch.native.pyramid import alloc_pyramid_buffers, fill_pyramid_host, tree_slice
     from roreg_tpu_torch.pipeline.extractor import effective_chunk, upload_chunk
 
+    f32 = dtype == torch.float32
     # the host pyramids of the main path's first rotation chunk of cloud 0,
     # uploaded and batched as the main path does it
     chunk = effective_chunk(cfg.group_size, cfg.group_chunk)
@@ -339,25 +394,30 @@ def phase_kernel(cfg, pair: dict, seed: int, device: str = "cuda") -> tuple[dict
     l2_flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # 5x the H100's 50 MB L2
     rows = []
     total = dict.fromkeys(("ms", "warm_l2_ms", "plain_ms", "bound_ms", "t_ops", "t_bytes", "err"), 0.0)
+    tol = F32_RTOL if f32 else KERNEL_ATOL
+    peak, elem = (PEAK_TF32_FLOPS, 4) if f32 else (PEAK_BF16_FLOPS, 2)
     for (kind, lvl), cin, cout, uses in CONV_SHAPES:
         src_lvl = lvl if kind in ("same", "down") else lvl + 1
         n_src = caps[src_lvl]
         single = torch.from_numpy(getattr(buf, kind)[lvl][0].astype(np.int32)).to(dev)
         table_b = getattr(batched, kind)[lvl]
-        w = (torch.randn(27, cin, cout, generator=gen, device=dev) * (2.0 / (27 * cin)) ** 0.5).bfloat16()
-        feats_b = torch.randn(chunk * n_src, cin, generator=gen, device=dev).bfloat16()
+        w = (torch.randn(27, cin, cout, generator=gen, device=dev) * (2.0 / (27 * cin)) ** 0.5).to(dtype)
+        feats_b = torch.randn(chunk * n_src, cin, generator=gen, device=dev).to(dtype)
         feats_1 = feats_b[:n_src].contiguous()
         row = {"table": f"{kind}[{lvl}]", "M": single.shape[0], "N": n_src, "cin": cin,
-               "cout": cout, "uses": uses, "voxels": nvox}
-        for tag, feats, table in (("one", feats_1, single), ("chunk", feats_b, table_b)):
+               "cout": cout, "uses": uses, "voxels": nvox, "dtype": str(dtype).replace("torch.", "")}
+        variants = (("chunk", feats_b, table_b),) if f32 else (("one", feats_1, single), ("chunk", feats_b, table_b))
+        for tag, feats, table in variants:
             out_k = gather_conv_kernel(feats, table, w)
             again = gather_conv_kernel(feats, table, w)
             out_p = gather_conv_plain(feats, table, w)
             torch.cuda.synchronize()
             err = float((out_k - out_p).abs().max())
-            if not np.isfinite(err) or err > KERNEL_ATOL:
+            checked = _f32_err(out_k, out_p) if f32 else err
+            if not np.isfinite(checked) or checked > tol:
                 raise AssertionError(
-                    f"gather_conv {row['table']} {cin}->{cout} ({tag}): max abs err {err} > {KERNEL_ATOL}")
+                    f"gather_conv {row['table']} {cin}->{cout} ({tag}, {row['dtype']}): "
+                    f"{'relative' if f32 else 'max abs'} err {checked} > {tol}")
             if not torch.equal(out_k, again):
                 raise AssertionError(f"gather_conv {row['table']} {cin}->{cout} ({tag}): two launches differ")
             del again
@@ -365,15 +425,15 @@ def phase_kernel(cfg, pair: dict, seed: int, device: str = "cuda") -> tuple[dict
             warm_ms = cuda_ms(lambda: gather_conv_kernel(feats, table, w), reps=20)
             plain_ms = cuda_ms(lambda: gather_conv_plain(feats, table, w), reps=3, warmup=1,
                                flush=l2_flush)
-            ops, nbytes = conv_work(table, cin, cout)
-            t_ops, t_bytes = ops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+            ops, nbytes = conv_work(table, cin, cout, elem)
+            t_ops, t_bytes = ops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
             row[tag] = {"table_dtype": str(table.dtype).replace("torch.", ""), "rows": table.shape[0],
-                        "max_abs_err": err, "ms": ms, "warm_l2_ms": warm_ms, "plain_ms": plain_ms,
-                        "ops_ms": t_ops, "bytes_ms": t_bytes, "bound_ms": max(t_ops, t_bytes),
+                        "max_abs_err": err, "checked_err": checked, "ms": ms, "warm_l2_ms": warm_ms,
+                        "plain_ms": plain_ms, "ops_ms": t_ops, "bytes_ms": t_bytes, "bound_ms": max(t_ops, t_bytes),
                         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                         "tflops": ops / ms / 1e9,
-                        **gather_conv_kernel.launch_shape(table.shape[0], cin, cout, 27)}
-            total["err"] = max(total["err"], err)
+                        **gather_conv_kernel.launch_shape(table.shape[0], 3 * cin if f32 else cin, cout, 27)}
+            total["err"] = max(total["err"], checked)
         c = row["chunk"]
         total["ms"] += uses * c["ms"]
         total["warm_l2_ms"] += uses * c["warm_l2_ms"]
@@ -382,29 +442,38 @@ def phase_kernel(cfg, pair: dict, seed: int, device: str = "cuda") -> tuple[dict
         total["t_ops"] += uses * c["ops_ms"]
         total["t_bytes"] += uses * c["bytes_ms"]
         rows.append(row)
+        one = "" if f32 else (f"one-rotation err {row['one']['max_abs_err']:.2e} kernel {row['one']['ms']:.3f} ms "
+                              f"plain {row['one']['plain_ms']:.3f} ms | ")
         progress(
-            f"  {row['table']:8s} M={row['M']:6d} N={n_src:6d} {cin:3d}->{cout:3d}: "
-            f"one-rotation err {row['one']['max_abs_err']:.2e} kernel {row['one']['ms']:.3f} ms "
-            f"plain {row['one']['plain_ms']:.3f} ms | chunk of {chunk} int32 err {c['max_abs_err']:.2e} "
+            f"  {row['table']:8s} M={row['M']:6d} N={n_src:6d} {cin:3d}->{cout:3d} {row['dtype']}: {one}"
+            f"chunk of {chunk} int32 err {c['checked_err']:.2e}{' (relative)' if f32 else ''} "
             f"kernel {c['ms']:.3f} ms (warm L2 {c['warm_l2_ms']:.3f}) plain {c['plain_ms']:.3f} ms bound {c['bound_ms']:.4f} ms "
-            f"({c['bound_by']}), {c['tflops']:.1f} TFLOP/s (tol {KERNEL_ATOL}, bit-equal twice); "
+            f"({c['bound_by']}), {c['tflops']:.1f} TFLOP/s (tol {tol}, bit-equal twice); "
             f"rows/CTA {c['rows_per_cta']}, channels/step {c['channels_per_step']}, stages {c['stages']}, "
-            f"cluster split {row['one']['cluster_split']} (one rotation) / {c['cluster_split']} (chunk)")
-    progress(f"phase 3 kernel: 11 shapes within {KERNEL_ATOL}; one chunk's 20 convs: kernel "
+            f"cluster split {c['cluster_split']} (chunk)")
+    total["bound_by"] = "operations" if total["t_ops"] >= total["t_bytes"] else "bytes"
+    progress(f"phase {'3e f32 gather_conv' if f32 else '3 kernel'}: 11 shapes within {tol}; one chunk's 20 convs: kernel "
              f"{total['ms']:.2f} ms (warm L2 {total['warm_l2_ms']:.2f} ms), plain {total['plain_ms']:.2f} ms, bound {total['bound_ms']:.3f} ms")
     return total, rows
 
 
-def phase_bwd_kernels(cfg, pair: dict, seed: int, device: str = "cuda") -> tuple[dict, list]:
+def phase_bwd_kernels(cfg, pair: dict, seed: int, device: str = "cuda",
+                      dtype: torch.dtype = torch.bfloat16) -> tuple[dict, list]:
     """Phase 3d: dgrad and wgrad against their plain versions at the 20
     conv shapes of one full-width training forward (one cloud's host
-    pyramid). Returns (totals per kernel over the 20 convs, rows)."""
+    pyramid). At f32 (phase 3e) each call runs its kernel once per bf16
+    term of W (dgrad) or X (wgrad); the error is relative to the output's
+    largest magnitude, the bound at f32 operand bytes, and neither the
+    library composite nor a second launch is timed. Returns (totals per
+    kernel over the 20 convs, rows)."""
     from roreg_tpu_torch.kernels.gather_conv import (
         bwd_work, gather_conv_dgrad_kernel, gather_conv_dgrad_plain,
         gather_conv_wgrad_kernel, gather_conv_wgrad_plain,
     )
     from roreg_tpu_torch.native.pyramid import alloc_pyramid_buffers, fill_pyramid_host
 
+    f32 = dtype == torch.float32
+    tol = F32_RTOL if f32 else BWD_ATOL
     dev = torch.device(device)
     host = alloc_pyramid_buffers(cfg.capacities, cfg.conv1_kernel_size)
     fill_pyramid_host(pair["points0"], cfg.voxel_size, host, conv1_kernel_size=cfg.conv1_kernel_size)
@@ -418,8 +487,8 @@ def phase_bwd_kernels(cfg, pair: dict, seed: int, device: str = "cuda") -> tuple
     for (kind, lvl), cin, cout, uses in CONV_SHAPES:
         n_src = caps[lvl if kind in ("same", "down") else lvl + 1]
         nbr = torch.from_numpy(getattr(host, kind)[lvl].astype(np.int32)).to(dev)
-        w = (torch.randn(27, cin, cout, generator=gen, device=dev) * (2.0 / (27 * cin)) ** 0.5).bfloat16()
-        feats = torch.randn(n_src, cin, generator=gen, device=dev).bfloat16()
+        w = (torch.randn(27, cin, cout, generator=gen, device=dev) * (2.0 / (27 * cin)) ** 0.5).to(dtype)
+        feats = torch.randn(n_src, cin, generator=gen, device=dev).to(dtype)
         dy = torch.randn(nbr.shape[0], cout, generator=gen, device=dev)
         dy[~(nbr >= 0).any(1)] = 0.0  # pad rows are masked in the forward: no gradient
         for name, kernel, plain in (("gather_conv_dgrad", gather_conv_dgrad_kernel, gather_conv_dgrad_plain),
@@ -430,22 +499,24 @@ def phase_bwd_kernels(cfg, pair: dict, seed: int, device: str = "cuda") -> tuple
             torch.cuda.synchronize()
             diff = (out_k - out_p).abs()
             err, mean_err = float(diff.max()), float(diff.mean())
+            checked = _f32_err(out_k, out_p) if f32 else err
             rerun = float((out_k - again).abs().max())
-            label = f"{kind}[{lvl}] {cin}->{cout} M={nbr.shape[0]} N={n_src}"
-            if not np.isfinite(err) or err > BWD_ATOL:
-                raise AssertionError(f"{name} {label}: max abs err {err} > {BWD_ATOL}")
+            label = f"{kind}[{lvl}] {cin}->{cout} M={nbr.shape[0]} N={n_src} {str(dtype)[6:]}"
+            if not np.isfinite(checked) or checked > tol:
+                raise AssertionError(f"{name} {label}: {'relative' if f32 else 'max abs'} err {checked} > {tol}")
             del again, out_p
             composite = _COMPOSITES[name]
-            comp_err = float((composite(feats, nbr, w, dy) - out_k).abs().max())
+            comp_err = None if f32 else float((composite(feats, nbr, w, dy) - out_k).abs().max())
             row = {"kernel": name, "shape": label, "uses": uses, "max_abs_err": err, "mean_abs_err": mean_err,
-                   "rerun_gap": rerun, "composite_err": comp_err,
+                   "checked_err": checked, "rerun_gap": rerun, "composite_err": comp_err,
                    "ms": cuda_ms(lambda: kernel(feats, nbr, w, dy), reps=20, flush=l2_flush),
                    "warm_l2_ms": cuda_ms(lambda: kernel(feats, nbr, w, dy), reps=20),
-                   "plain_ms": cuda_ms(lambda: plain(feats, nbr, w, dy), reps=3, warmup=1, flush=l2_flush),
-                   "composite_ms": cuda_ms(lambda: composite(feats, nbr, w, dy), reps=5, warmup=1,
-                                           flush=l2_flush),
+                   "plain_ms": cuda_ms(lambda: plain(feats, nbr, w, dy), reps=1 if f32 else 3,
+                                       warmup=0 if f32 else 1, flush=l2_flush),
+                   "composite_ms": 0.0 if f32 else cuda_ms(lambda: composite(feats, nbr, w, dy), reps=5,
+                                                            warmup=1, flush=l2_flush),
                    **kernel.launch_shape(nbr.shape[0], cin, cout, 27)}
-            work = bwd_work(name.rsplit("_", 1)[1], nbr, n_src, cin, cout)
+            work = bwd_work(name.rsplit("_", 1)[1], nbr, n_src, cin, cout, 4 if f32 else 2)
             # bound at the tensor cores' TF32 rate: dY stays f32, its partner
             # (W or X) is bf16
             row.update(_bound(*work, PEAK_TF32_FLOPS))
@@ -453,22 +524,24 @@ def phase_bwd_kernels(cfg, pair: dict, seed: int, device: str = "cuda") -> tuple
             t = totals[name]
             for k in keys:
                 t[k] += uses * row[k]
-            t["err"], t["rerun_gap"] = max(t["err"], err), max(t["rerun_gap"], rerun)
+            t["err"], t["rerun_gap"] = max(t["err"], checked), max(t["rerun_gap"], rerun)
             t["mean_err"] = max(t["mean_err"], mean_err)
             rows.append(row)
-            progress(f"  {name:17s} {label:40s} err max {err:.2e} mean {mean_err:.2e} (rerun gap {rerun:.1e}) "
+            comp = "" if f32 else f"composite {row['composite_ms']:.3f} ms (err {comp_err:.1e}) "
+            progress(f"  {name:17s} {label:45s} err max {checked:.2e}{' (relative)' if f32 else ''} mean {mean_err:.2e} "
+                     f"(rerun gap {rerun:.1e}) "
                      f"kernel {row['ms']:.3f} ms (warm L2 {row['warm_l2_ms']:.3f}) plain {row['plain_ms']:.3f} ms "
-                     f"composite {row['composite_ms']:.3f} ms (err {comp_err:.1e}) "
+                     f"{comp}"
                      f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), {row['tflops']:.2f} TFLOP/s; "
                      f"{row['blocks']} thread blocks, {row.get('offsets_per_block', row.get('rows_per_block'))} "
                      f"{'offsets' if 'offsets_per_block' in row else 'rows'} each, {row['stages']} stages")
     for t in totals.values():
         t["bound_by"] = "operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes"
-    progress("phase 3d backward kernels, one full-width forward's 20 convs: " + "; ".join(
+    progress(f"phase {'3e f32' if f32 else '3d'} backward kernels, one full-width forward's 20 convs: " + "; ".join(
         f"{n} kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.2f} ms, library composite {t['composite_ms']:.3f} ms, "
         f"bound {t['bound_ms']:.4f} ms "
         f"({t['bound_by']}), max err {t['err']:.1e}, mean err {t['mean_err']:.1e}, rerun gap {t['rerun_gap']:.1e} "
-        f"(tol {BWD_ATOL})" for n, t in totals.items()))
+        f"(tol {tol})" for n, t in totals.items()))
     return totals, rows
 
 
@@ -508,10 +581,15 @@ def _bound(ops: int, nbytes: int, peak_flops: float = PEAK_BF16_FLOPS) -> dict:
 
 
 def phase_block_kernels(cfg, pair: dict, seed: int, device: str = "cuda",
-                        tag: str = "phase 3b block kernels") -> tuple[dict, list]:
+                        tag: str = "phase 3b block kernels",
+                        dtype: torch.dtype = torch.bfloat16) -> tuple[dict, list]:
     """The block engine's five kernels against their plain versions at every
     shape of one chunk's forward, on the main path's own upload of chunk 0
-    of cloud 0. Returns (totals per kernel over one chunk's forward, rows)."""
+    of cloud 0. At f32 (phase 3e) the three the f32 path runs: block_gather
+    on f32 rows, halo_conv and up_conv on f32 operands (errors relative to
+    the output's largest magnitude, bounds at f32 operand bytes); the f32
+    path concatenates with ``torch.cat`` and cell_dense is f32 on both
+    paths. Returns (totals per kernel over one chunk's forward, rows)."""
     import torch.nn.functional as F
 
     from roreg_tpu_torch.kernels.block_gather import block_gather_kernel, block_gather_plain, gather_work
@@ -538,12 +616,19 @@ def phase_block_kernels(cfg, pair: dict, seed: int, device: str = "cuda",
     gen = torch.Generator(device=dev).manual_seed(seed)
     l2_flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
     keys = ("ms", "warm_l2_ms", "plain_ms", "library_ms", "bound_ms", "ops_ms", "bytes_ms", "err", "uses")
-    names = ("block_gather", "halo_conv", "up_conv", "skip_concat", "cell_dense")
+    f32 = dtype == torch.float32
+    names = ("block_gather", "halo_conv", "up_conv") if f32 else (
+        "block_gather", "halo_conv", "up_conv", "skip_concat", "cell_dense")
+    conv_tol = ("max_rel", F32_RTOL) if f32 else ("abs", KERNEL_ATOL)
+    conv_peak, elem = (PEAK_TF32_FLOPS, 4) if f32 else (PEAK_BF16_FLOPS, 2)
     totals = {name: dict.fromkeys(keys, 0.0) for name in names}
     rows = []
 
     def measure(name, kernel, plain, library, work, uses, tol, label, peak=PEAK_BF16_FLOPS, launch=None):
-        """tol: "exact", or ("abs" | "rel", limit). library: (one PyTorch
+        """tol: "exact", or ("abs" | "rel" | "max_rel", limit): "rel" takes
+        each element's gap over ``|plain| + 1``, "max_rel" the largest gap
+        over the plain version's largest magnitude (then also the total's
+        error). library: (one PyTorch
         call computing the same function, what it is). launch: the kernel's
         launch shape, reported with the row."""
         out_k = kernel()
@@ -560,6 +645,8 @@ def phase_block_kernels(cfg, pair: dict, seed: int, device: str = "cuda",
             kind, limit = tol
             if kind == "rel":
                 checked = float((diff / (out_p.float().abs() + 1)).max())
+            elif kind == "max_rel":
+                checked = _f32_err(out_k.float(), out_p.float())
             if not np.isfinite(checked) or checked > limit:
                 raise AssertionError(f"{name} {label}: max {kind} err {checked} > {limit}")
         lib_fn, lib_what = library
@@ -573,7 +660,7 @@ def phase_block_kernels(cfg, pair: dict, seed: int, device: str = "cuda",
         row["tflops"] = work[0] / row["ms"] / 1e9
         row["gbps"] = work[1] / row["ms"] / 1e6
         t = totals[name]
-        t["err"] = max(t["err"], err)
+        t["err"] = max(t["err"], checked if tol != "exact" and tol[0] == "max_rel" else err)
         t["uses"] += uses
         for k in keys[:-2]:
             t[k] += uses * row[k]
@@ -590,10 +677,10 @@ def phase_block_kernels(cfg, pair: dict, seed: int, device: str = "cuda",
     for use, lvl, r in BLOCK_GATHER_SHAPES:
         if use == "conv1":
             tbl = pyr.levels[0].same_tbl
-            src = occs[0].to(torch.bfloat16).contiguous()
+            src = occs[0].to(dtype).contiguous()
         else:
             tbl = pyr.up_tbl[lvl]
-            src = randn(occs[lvl + 1].numel(), r).bfloat16()
+            src = randn(occs[lvl + 1].numel(), r).to(dtype)
         padded = torch.cat([torch.zeros_like(src[:1]), src])
         ids = tbl.long() + 1
         measure("block_gather", lambda: block_gather_kernel(src, tbl), lambda: block_gather_plain(src, tbl),
@@ -605,8 +692,8 @@ def phase_block_kernels(cfg, pair: dict, seed: int, device: str = "cuda",
         span, stride = (6, 1) if kind == "same" else (9, 2)
         tbl = pyr.levels[lvl].same_tbl if kind == "same" else pyr.down_tbl[lvl]
         mask = occs[lvl] if kind == "same" else occs[lvl + 1]
-        feats = (randn(occs[lvl].shape[0], 64, cin) * occs[lvl][..., None]).bfloat16()
-        w = (randn(27, cin, cout) * (2.0 / (27 * cin)) ** 0.5).bfloat16()
+        feats = (randn(occs[lvl].shape[0], 64, cin) * occs[lvl][..., None]).to(dtype)
+        w = (randn(27, cin, cout) * (2.0 / (27 * cin)) ** 0.5).to(dtype)
         # the library yardstick: a dense conv3d over the halo the plain version
         # materialises (the gather is left out of its time)
         halo = halo_gather_plain(feats, tbl, stride).view(-1, span, span, span, cin)
@@ -616,16 +703,16 @@ def phase_block_kernels(cfg, pair: dict, seed: int, device: str = "cuda",
                 lambda: halo_conv_plain(feats, tbl, w, mask, span, stride),
                 (lambda: F.conv3d(halo, w5, stride=stride),
                  "torch.nn.functional.conv3d over the halo the plain version materialises (gather not timed)"),
-                halo_work(tbl, mask, cin, cout, stride), uses, ("abs", KERNEL_ATOL),
-                f"{kind}[{lvl}] {cin}->{cout} B={tbl.shape[0]}",
-                launch=halo_conv_kernel.launch_shape(cin, cout, span, stride))
+                halo_work(tbl, mask, cin, cout, stride, elem), uses, conv_tol,
+                f"{kind}[{lvl}] {cin}->{cout} B={tbl.shape[0]} {str(dtype)[6:]}", conv_peak,
+                launch=halo_conv_kernel.launch_shape(3 * cin if f32 else cin, cout, span, stride))
         del halo
 
     for layer, lvl, cin, cout in UP_SHAPES:
         tbl, mask = pyr.up_tbl[lvl], occs[lvl]
-        coarse = (randn(occs[lvl + 1].shape[0], 64, cin) * occs[lvl + 1][..., None]).bfloat16()
+        coarse = (randn(occs[lvl + 1].shape[0], 64, cin) * occs[lvl + 1][..., None]).to(dtype)
         reg = block_gather_plain(coarse.reshape(-1, cin), tbl)  # the main path's up-conv input
-        w = (randn(27, cin, cout) * (2.0 / (8 * cin)) ** 0.5).bfloat16()
+        w = (randn(27, cin, cout) * (2.0 / (8 * cin)) ** 0.5).to(dtype)
         # the library yardstick: one stride-2 transposed conv3d of each fine
         # block's 3^3 coarse region (layouts made outside the timed span)
         reg5 = reg.view(-1, 3, 3, 3, cin).permute(0, 4, 1, 2, 3).contiguous()
@@ -634,12 +721,17 @@ def phase_block_kernels(cfg, pair: dict, seed: int, device: str = "cuda",
                 (lambda: F.conv_transpose3d(reg5, w5, stride=2, padding=1),
                  "torch.nn.functional.conv_transpose3d, stride 2, over each fine block's 3^3 region "
                  "(layouts made outside the timed span)"),
-                up_work(tbl, mask, cin, cout), 1, ("abs", KERNEL_ATOL),
-                f"{layer} [{lvl}] {cin}->{cout} B={tbl.shape[0]}",
+                up_work(tbl, mask, cin, cout, elem), 1, conv_tol,
+                f"{layer} [{lvl}] {cin}->{cout} B={tbl.shape[0]} {str(dtype)[6:]}", conv_peak,
                 launch=up_conv_kernel.launch_shape(cin, cout))
         del reg5
 
-    for layer, lvl, ca, cb in SKIP_SHAPES:
+    if f32:  # the f32 path runs neither skip_concat nor (in another type) cell_dense
+        skips, denses = (), ()
+    else:
+        skips, denses = SKIP_SHAPES, DENSE_SHAPES
+
+    for layer, lvl, ca, cb in skips:
         a = randn(occs[lvl].shape[0], 64, ca) * occs[lvl][..., None]
         b = randn(occs[lvl].shape[0], 64, cb) * occs[lvl][..., None]
         out_lib = torch.empty(a.shape[:-1] + (ca + cb,), dtype=torch.bfloat16, device=dev)
@@ -648,7 +740,7 @@ def phase_block_kernels(cfg, pair: dict, seed: int, device: str = "cuda",
                 concat_work(a, b), 1, "exact", f"into {layer} [{lvl}] {ca}+{cb} B={a.shape[0]}")
 
     row_mask = occs[0].reshape(-1)  # the main path passes the level-0 cell mask
-    for layer, ca, cb, n, has_bias, relu in DENSE_SHAPES:
+    for layer, ca, cb, n, has_bias, relu in denses:
         a = torch.relu(randn(occs[0].shape[0] * 64, ca))
         b = torch.relu(randn(occs[0].shape[0] * 64, cb)) if cb else None
         weight = randn(n, ca + cb) / (ca + cb) ** 0.5
@@ -777,9 +869,11 @@ def _small_pair(seed: int) -> dict:
     return synthetic_pair(seed + 1, points_per_cloud=6000, num_keypoints=256, surface_extent=1.6)
 
 
-def phase_reference(cfg, seed: int, device: str = "cuda") -> dict:
+def phase_reference(cfg, seed: int, device: str = "cuda", atol: float = REFERENCE_ATOL,
+                    mean_atol: float = REFERENCE_MEAN_ATOL, tag: str = "phase 3c reference") -> dict:
     """``cfg``'s engine at a small configuration, on the GPU (kernels) and
-    on the CPU (plain versions): the descriptors must agree."""
+    on the CPU (plain versions): the descriptors must agree within ``atol``
+    (largest gap) and ``mean_atol`` (mean gap)."""
     from roreg_tpu_torch.pipeline.registration import RegistrationPipeline
     from roreg_tpu_torch.weights import init_variables
 
@@ -798,10 +892,10 @@ def phase_reference(cfg, seed: int, device: str = "cuda") -> dict:
     for i, name in enumerate(("bb", "gf")):
         d = (feats[device][i] - feats["cpu"][i]).abs()
         errs[name] = {"max": float(d.max()), "mean": float(d.mean())}
-        if errs[name]["max"] > REFERENCE_ATOL or errs[name]["mean"] > REFERENCE_MEAN_ATOL:
-            raise AssertionError(f"GPU and CPU describe disagree on {name}: {errs[name]}")
-    progress(f"phase 3c reference ({cfg.engine} engine): small-config register_pair descriptors, "
-             f"GPU kernels vs CPU plain versions: {errs} (tol max {REFERENCE_ATOL}, mean {REFERENCE_MEAN_ATOL})")
+        if not errs[name]["max"] <= atol or not errs[name]["mean"] <= mean_atol:
+            raise AssertionError(f"{tag}: GPU and CPU describe disagree on {name}: {errs[name]}")
+    progress(f"{tag} ({cfg.engine} engine, {cfg.backbone_compute_dtype or 'float32'} convs): small-config "
+             f"register_pair descriptors, GPU kernels vs CPU plain versions: {errs} (tol max {atol}, mean {mean_atol})")
     return errs
 
 
@@ -1458,6 +1552,347 @@ def phase_zoo(pair: dict, seed: int, device: str = "cuda") -> dict:
     return out
 
 
+def phase_f32_kernels(gather_cfg, block_cfg, pair: dict, seed: int, device: str = "cuda") -> dict:
+    """Phase 3e: the conv kernels with f32 operands against their f32 plain
+    versions, TF32 off for cuBLAS and cuDNN (restored after): gather_conv at
+    phase 3's 11 shapes, dgrad and wgrad at phase 3d's 20 convs, and
+    block_gather (f32 rows), halo_conv and up_conv at phase 3b's shapes and
+    at the bench's block capacities. Returns the totals by kernel (the
+    block kernels' at phase 3b's shapes), the rows, and the bench-capacity
+    totals."""
+    from roreg_tpu_torch.bench import bench_config
+
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    try:
+        out = {}
+        out["gather_conv"], out["gather_rows"] = phase_kernel(gather_cfg, pair, seed, device, torch.float32)
+        out["bwd"], out["bwd_rows"] = phase_bwd_kernels(gather_cfg, pair, seed, device, torch.float32)
+        out["block"], out["block_rows"] = phase_block_kernels(block_cfg, pair, seed, device,
+                                                              "phase 3e f32 block kernels", torch.float32)
+        bcfg = bench_config()
+        bcfg = dataclasses.replace(bcfg, block_caps_fallback=None)
+        out["bench_block"], _ = phase_block_kernels(
+            bcfg, _bench_scene_cloud0(bcfg), seed, device,
+            f"phase 3e f32 block kernels at the bench's block capacities {bcfg.block_caps}", torch.float32)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+    return out
+
+
+def _f32_fields(t: dict | None, launches: int, same_as: dict | None = None) -> dict:
+    """A kernel's f32 numbers in the kernels line: its phase 3e error (over
+    the output's largest magnitude), ms and bound at f32 operand bytes, and
+    its launches on the f32 main path (phase 6f, or 11c for the backward
+    kernels). ``same_as``: a kernel that is f32 on both paths reports its
+    phase 3b numbers (cell_dense: its phase 3b error, relative to ``|plain|
+    + 1``); ``t`` None: a kernel the f32 path does not run (skip_concat)."""
+    t = t or same_as
+    if t is None:
+        return {"f32_max_rel_err": None, "f32_ms": None, "f32_bound_ms": None, "f32_launches": launches}
+    return {"f32_max_rel_err": t["err"], "f32_ms": t["ms"], "f32_bound_ms": t["bound_ms"], "f32_launches": launches}
+
+
+def phase_backbone_train_f32(seed: int, device: str = "cuda") -> dict:
+    """Phase 11c: ``cli.train --component backbone`` with the CLI's
+    ``PipelineConfig`` at ``backbone_compute_dtype=None`` (f32 convs on the
+    card) for ``BACKBONE_F32_STEPS`` steps: every loss finite, a step
+    launching gather_conv 40 times (one a conv: the stacked split
+    operands) and dgrad and wgrad 80 times each (one a bf16 term of W or
+    X); then the 12-step overfit at f32 must lower the loss."""
+    import contextlib
+    import functools
+    import tempfile
+
+    from roreg_tpu_torch.cli import train as cli_train
+    from roreg_tpu_torch.pipeline.config import PipelineConfig
+    from roreg_tpu_torch.train.backbone import backbone_pair_batches, make_backbone_train_step
+
+    kernels = _kernels()
+    per_step = {"gather_conv": 40, "gather_conv_dgrad": 80, "gather_conv_wgrad": 80}
+    f32_cfg = functools.partial(PipelineConfig, backbone_compute_dtype=None)
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="roreg_backbone_f32_") as tmp:
+        args = cli_train.get_parser().parse_args([
+            "--component", "backbone", "--steps", str(BACKBONE_F32_STEPS), "--synthetic_scenes", "2",
+            "--data_root", os.path.join(tmp, "data"), "--checkpoint_dir", os.path.join(tmp, "ckpt"),
+            "--device", device, "--seed", str(seed)])
+        cli_train.build_scenes(args)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for k in kernels.values():
+            k.launches = 0
+        real = cli_train.PipelineConfig
+        cli_train.PipelineConfig = f32_cfg
+        try:
+            with contextlib.redirect_stdout(sys.stderr):
+                res = cli_train.train_backbone(args)
+        finally:
+            cli_train.PipelineConfig = real
+        torch.cuda.synchronize()
+        launches = {n: k.launches for n, k in kernels.items()}
+        expected = {n: per_step.get(n, 0) * BACKBONE_F32_STEPS for n in kernels}
+        if launches != expected:
+            raise AssertionError(f"phase 11c: launches {launches}, expected {expected}")
+        losses = res["losses"]
+        if len(losses) != BACKBONE_F32_STEPS or not np.isfinite(losses).all():
+            raise AssertionError(f"phase 11c: losses {losses}")
+        out["cli"] = {"steps": BACKBONE_F32_STEPS, "step_s": res["step_s"], "host_s": res["host_s"],
+                      "steps_per_sec": BACKBONE_F32_STEPS / res["step_s"],
+                      "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30, "losses": losses,
+                      "launches": launches}
+        cfg = f32_cfg(voxel_size=args.voxel_size, group_size=args.group_size,
+                      num_keypoints=cli_train.SCENE["num_keypoints"])
+        batch = next(backbone_pair_batches(cli_train.build_scenes(args), cfg, np.random.default_rng(seed + 7)))
+        init_fn, step_fn = make_backbone_train_step(cfg, lr=3e-2, device=device)
+        state = init_fn(seed=seed)
+        fit = [float(step_fn(state, batch)["loss"]) for _ in range(OVERFIT_STEPS)]
+        if not (np.isfinite(fit).all() and np.mean(fit[-3:]) < np.mean(fit[:3])):
+            raise AssertionError(f"phase 11c: the f32 overfit did not lower the loss: {fit}")
+        out["overfit"] = fit
+        del state
+    progress(f"phase 11c f32 backbone training: {BACKBONE_F32_STEPS} steps of cli.train --component backbone at "
+             f"backbone_compute_dtype=None, steps {res['step_s']:.2f} s ({out['cli']['steps_per_sec']:.2f} steps/s), "
+             f"peak {out['cli']['peak_mem_gib']:.2f} GiB, loss {losses[0]:.4f} -> {losses[-1]:.4f}; launches "
+             f"{launches} = {per_step} x {BACKBONE_F32_STEPS} steps; overfit {fit[0]:.4f} -> {fit[-1]:.4f}")
+    return out
+
+
+def _host_pyramid(points: np.ndarray, cfg):
+    from roreg_tpu_torch.native.pyramid import alloc_pyramid_buffers, fill_pyramid_host
+
+    buf = alloc_pyramid_buffers(cfg.capacities, cfg.conv1_kernel_size)
+    fill_pyramid_host(points, cfg.voxel_size, buf, conv1_kernel_size=cfg.conv1_kernel_size)
+    return buf
+
+
+def _pyramid_diff(d, h, rep_points: bool = True) -> list[str]:
+    """The leaves in which a device-built pyramid ``d`` (tensors) and a host
+    build ``h`` (numpy) differ: keys, masks, counts, coordinates of valid
+    rows (the host leaves pad rows' coordinates at 0, the reference decodes
+    its SENTINEL), every table, the occupancy words and, with
+    ``rep_points``, the representative points."""
+    bad = []
+    eq = lambda a, b: np.array_equal(a.cpu().numpy(), b)  # noqa: E731
+    for l, (dl, hl) in enumerate(zip(d.levels, h.levels)):
+        n = int(hl.num)
+        if not (eq(dl.keys, hl.keys) and eq(dl.mask, hl.mask) and eq(dl.num, hl.num)
+                and eq(dl.coords[:n], hl.coords[:n])):
+            bad.append(f"level {l}")
+    for name in ("same", "down", "up"):
+        for l, (dt, ht) in enumerate(zip(getattr(d, name), getattr(h, name))):
+            if not eq(dt, ht.astype(np.int32)):
+                bad.append(f"{name}[{l}]")
+    if not eq(d.conv1_occ, h.conv1_occ.view(np.int32)):
+        bad.append("conv1_occ")
+    if rep_points and not eq(d.grid.rep_point, h.grid.rep_point):
+        bad.append("rep_point")
+    return bad
+
+
+def phase_device_pyramids(pair: dict, seed: int, device: str = "cuda") -> dict:
+    """Phase 12: ``PipelineConfig(engine="gather", host_maps=False)`` at its
+    default capacities (32768/16384/8192/4096, G = 60) on the smoke pair.
+    For every rotation of each cloud the device build and the host builder,
+    fed the same device-rotated points, give every table, mask,
+    ``to_voxel`` and representative point bit for bit (the host quantizes
+    with ``p * (1 / voxel)``, the reference with ``p / voxel``, and
+    PyTorch's CUDA division by a Python number as the host: the count of
+    points whose two floors differ is printed). The
+    device-built describe of cloud 0 equals the host-map describe within
+    gather_conv's 1e-3 at every rotation whose two paths' pyramids are equal
+    (the host path rotates on the host, the device path on the card); a
+    rotation where they differ fails unless its host- and device-rotated
+    points differ. ``register_pair`` registers the pair to a rigid motion
+    with 20 gather_conv launches a chunk. The device and host build seconds
+    of a cloud's 60 rotations are printed."""
+    import dataclasses as dc
+
+    from roreg_tpu_torch.core.group import get_group
+    from roreg_tpu_torch.native.pyramid import host_to_voxel
+    from roreg_tpu_torch.pipeline.config import PipelineConfig
+    from roreg_tpu_torch.pipeline.registration import RegistrationPipeline
+    from roreg_tpu_torch.sparse.kernel_map import build_pyramid
+    from roreg_tpu_torch.weights import init_variables
+
+    cfg = PipelineConfig(engine="gather", host_maps=False)
+    dev = torch.device(device)
+    rots = get_group(cfg.group_size).rotations.astype(np.float32)
+    inv = np.float32(1.0) / np.float32(cfg.voxel_size)
+    out: dict = {"bit_equal": {}}
+
+    def device_build(pts_dev, R):
+        p = pts_dev @ torch.from_numpy(R).to(dev).T
+        ones = torch.ones(p.shape[0], dtype=torch.bool, device=dev)
+        return p, build_pyramid(p, ones, cfg.voxel_size, cfg.capacities, conv1_kernel_size=cfg.conv1_kernel_size)
+
+    for cloud in ("points0", "points1"):
+        pts_dev = torch.from_numpy(pair[cloud]).to(dev)
+        flips = 0
+        for g in range(cfg.group_size):
+            p_dev, d = device_build(pts_dev, rots[g])
+            p = p_dev.cpu().numpy()
+            flip = int((np.floor(p / np.float32(cfg.voxel_size)) != np.floor(p * inv)).any(1).sum())
+            h = _host_pyramid(p, cfg)
+            bad = _pyramid_diff(d, h)
+            if not np.array_equal(d.grid.to_voxel.cpu().numpy(), host_to_voxel(p, cfg.voxel_size, cfg.capacities[0])):
+                bad.append("to_voxel")
+            if bad:
+                raise AssertionError(f"phase 12 {cloud} rotation {g}: device and host builds differ in {bad} "
+                                     f"({flip} points whose floor(p / voxel) and floor(p * (1 / voxel)) differ)")
+            flips += flip
+            if g == 0:
+                out["bit_equal"][cloud] = {"voxels_rotation0": [int(l.num) for l in h.levels]}
+        out["bit_equal"][cloud].update({"rotations": cfg.group_size, "floor_flips": flips})
+
+    pts_dev = torch.from_numpy(pair["points0"]).to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    built = [device_build(pts_dev, R) for R in rots]
+    torch.cuda.synchronize()
+    out["device_build_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host_pts = [pair["points0"] @ R.T for R in rots]  # as the host-map extractor rotates
+    hosts = [_host_pyramid(p, cfg) for p in host_pts]
+    out["host_build_s"] = time.perf_counter() - t0
+    same = [not _pyramid_diff(d, h, rep_points=False) for (_, d), h in zip(built, hosts)]
+    rot_gap = [float(np.abs(p.cpu().numpy() - hp).max()) for (p, _), hp in zip(built, host_pts)]
+    del built, hosts
+    unexplained = [g for g in range(cfg.group_size) if not same[g] and rot_gap[g] == 0.0]
+    if unexplained:
+        raise AssertionError(f"phase 12: the device and host builds differ at rotations {unexplained}, whose "
+                             "host- and device-rotated points are equal")
+
+    variables = init_variables(cfg, seed)
+    feats = {}
+    for host_maps in (False, True):
+        pipe = RegistrationPipeline(dc.replace(cfg, host_maps=host_maps), variables, device=device)
+        feats[host_maps] = pipe.extract(pair["points0"], None, pair["keys0"])
+        del pipe
+    gap = (feats[False] - feats[True]).abs().amax(dim=(0, 2)).cpu()  # per rotation
+    held = [g for g in range(cfg.group_size) if same[g]]
+    err = float(gap[held].max()) if held else float("nan")
+    if not held or not err <= KERNEL_ATOL:
+        raise AssertionError(f"phase 12: the device-built describe differs from the host-map describe by {err} "
+                             f"at rotations whose pyramids are equal ({len(held)} of {cfg.group_size})")
+    out.update({"describe_err": err, "rotations_held": len(held),
+                "rotations_differing": {g: float(gap[g]) for g in range(cfg.group_size) if not same[g]}})
+    out["slice"] = phase_slice(cfg, pair, seed, {"gather_conv": 20}, "phase 12 device-built pyramids", device)
+    progress(f"phase 12 device-built pyramids: all {cfg.group_size} rotations of both clouds bit-equal to "
+             f"the host builder ({out['bit_equal']}); describe within {err:.2e} of the host-map describe at "
+             f"{len(held)} of {cfg.group_size} rotations (tol {KERNEL_ATOL}; pyramids differ at "
+             f"{out['rotations_differing']}); a cloud's {cfg.group_size} pyramids: device build {out['device_build_s']:.3f} s, "
+             f"host build {out['host_build_s']:.3f} s (one thread, serial)")
+    return out
+
+
+def _gf_batch(b: int, g: int, seed: int) -> dict:
+    """A GF batch as tests/test_dist.py makes one: random group features,
+    the second side a Cayley-permuted copy, the true indices."""
+    from roreg_tpu_torch.core.group import get_group
+
+    rng = np.random.default_rng(seed)
+    f0 = rng.normal(size=(b, g, 32)).astype(np.float32)
+    idx = rng.integers(0, g, size=b)
+    cayley = get_group(g).cayley
+    return {"feats0": f0, "feats1": np.stack([f0[i][cayley[idx[i]]] for i in range(b)]), "true_idx": idx}
+
+
+def phase_dist(seed: int, device: str = "cuda") -> dict:
+    """Phase 13: ``torch.distributed`` on NCCL in a world of one (the card
+    box has one GPU; tests/test_torch_dist.py runs a gloo world of two):
+    ``shard_train_step`` on a GF batch of 32 equals the plain step (loss
+    within tests/test_dist.py's 1e-3, parameters within ``DIST_RTOL``, and
+    the step size for rounding-sized gradients); ``eval_pairs_sharded`` and
+    ``pair_stacks_sharded`` equal the batched stage (transforms within
+    ``PAIR_BATCH_T_TOL``, matches equal); ``all_gather_metrics``
+    round-trips."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from roreg_tpu_torch.dist import eval as dist_eval
+    from roreg_tpu_torch.dist import multihost
+    from roreg_tpu_torch.dist.mesh import make_mesh, shard_train_step
+    from roreg_tpu_torch.pipeline.config import PipelineConfig
+    from roreg_tpu_torch.pipeline.registration import RegistrationPipeline
+    from roreg_tpu_torch.train.trainer import TrainConfig, make_train_step
+    from roreg_tpu_torch.weights import _leaves, flatten_variables, init_variables
+
+    out: dict = {}
+    with tempfile.TemporaryDirectory(prefix="roreg_nccl_") as tmp:
+        multihost.initialize(f"file://{tmp}/init", 1, 0, backend="nccl")
+        try:
+            mesh = make_mesh(1)
+            out["backend"] = dist.get_backend()
+            cfg = TrainConfig.defaults("gf")
+            batch = _gf_batch(cfg.batch_size, cfg.group_size, seed)
+            init_fn, step_fn, _ = make_train_step(cfg, device=device)
+            plain, sharded = init_fn(seed=seed), init_fn(seed=seed)
+            m_plain = step_fn(plain, batch)
+            m_sharded = shard_train_step(step_fn, mesh)(sharded, batch)
+            loss_gap = abs(float(m_plain["loss"]) - float(m_sharded["loss"]))
+            grads = {"/".join(path): t.grad.cpu() for t, path, _ in _leaves(plain.net)
+                     if path[0] == "params" and t.grad is not None}
+            gmax = max(float(g.abs().max()) for g in grads.values())
+            want, got = flatten_variables(plain.variables()), flatten_variables(sharded.variables())
+            worst, noisy_worst = 0.0, 0.0
+            for k, w in want.items():
+                d = np.abs(got[k] - w)
+                if k in grads:
+                    g = grads[k].numpy()
+                    g = g.T if g.shape != w.shape else g
+                    noise = np.abs(g) < DIST_NOISE_GRAD * gmax
+                    noisy_worst = max(noisy_worst, float(d[noise].max(initial=0.0)))
+                    d, w = d[~noise], w[~noise]
+                worst = max(worst, float((d / max(float(np.abs(w).max(initial=0.0)), 1e-12)).max(initial=0.0)))
+            if not (loss_gap < 1e-3 and worst <= DIST_RTOL and noisy_worst <= 2 * cfg.lr_init * 1.001):
+                raise AssertionError(f"phase 13: the sharded GF step differs from the plain one: loss gap {loss_gap}, "
+                                     f"parameters {worst} relative, rounding-gradient elements {noisy_worst}")
+            out["train"] = {"loss": float(m_plain["loss"]), "loss_gap": loss_gap, "param_rel_err": worst,
+                            "noise_elem_err": noisy_worst}
+
+            ecfg = PipelineConfig(keynum=256)
+            pipe = RegistrationPipeline(ecfg, init_variables(ecfg, seed), device=device)
+            gen = torch.Generator(device=device).manual_seed(seed)
+            b, c, g = 4, 4, ecfg.group_size
+            unit = lambda *shape: torch.nn.functional.normalize(  # noqa: E731
+                torch.randn(*shape, generator=gen, device=device), dim=-1)
+            all_bb, all_gf = unit(c, ecfg.keynum, g, 32), unit(c, ecfg.keynum, g, 32)
+            all_kp = torch.rand(c, ecfg.keynum, 3, generator=gen, device=device) * 2.0
+            i0, i1 = torch.tensor([0, 0, 1, 2], device=device), torch.tensor([1, 2, 3, 3], device=device)
+            perm = torch.argsort(torch.rand(b, ecfg.keynum, generator=gen, device=device), -1)
+            sets = [t[i] for t in (all_bb, all_gf, all_kp) for i in (i0, i1)]
+            checks = {}
+            for name, ref, got in (
+                ("eval_pairs_sharded", dist_eval.batched_pair_stage(pipe, *sets, perm=perm),
+                 dist_eval.eval_pairs_sharded(mesh, pipe, *sets, perm=perm)),
+                ("pair_stacks_sharded", dist_eval.pair_batch_from_stacks(pipe, i0, i1, all_bb, all_gf, all_kp, perm=perm),
+                 dist_eval.pair_stacks_sharded(mesh, pipe, i0, i1, all_bb, all_gf, all_kp, perm=perm)),
+            ):
+                t_gap = float((got["transform"] - ref["transform"]).abs().max())
+                same = all(torch.equal(got[k], ref[k]) for k in ("m0", "m1", "est_valid", "keys_m0", "keys_m1")
+                           if k in ref)
+                if not (t_gap <= PAIR_BATCH_T_TOL and same and bool(torch.isfinite(got["transform"]).all())):
+                    raise AssertionError(f"phase 13 {name}: transforms {t_gap}, matches equal {same}")
+                checks[name] = {"transform_gap": t_gap, "matches_equal": same}
+            out["eval"] = checks
+            local = {"pairs": 4.0, "loss": float(m_plain["loss"])}
+            gathered = multihost.all_gather_metrics(local)
+            if gathered != {k: [float(np.float32(v))] for k, v in local.items()}:
+                raise AssertionError(f"phase 13: all_gather_metrics gave {gathered} for {local}")
+            out["metrics"] = gathered
+        finally:
+            dist.destroy_process_group()
+    progress(f"phase 13 distribution on {out['backend']}, a world of one: shard_train_step on a GF batch of "
+             f"{cfg.batch_size}: loss gap {out['train']['loss_gap']:.1e}, parameters {out['train']['param_rel_err']:.1e} "
+             f"relative (tol {DIST_RTOL}), rounding-gradient elements {out['train']['noise_elem_err']:.1e} "
+             f"(tol {2 * cfg.lr_init}); " + "; ".join(f"{n} transforms within {v['transform_gap']:.1e}, matches equal"
+                                                     for n, v in out["eval"].items())
+             + f"; all_gather_metrics {out['metrics']}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1486,21 +1921,37 @@ def main() -> int:
         report["bwd_kernel_shapes"] = bwd_rows
         block_totals, block_rows = phase_block_kernels(block_cfg, pair, args.seed)
         report["block_kernel_shapes"] = block_rows
+        report["f32"] = phase_f32_kernels(gather_cfg, block_cfg, pair, args.seed)
         report["reference"] = {c.engine: phase_reference(c, args.seed) for c in (gather_cfg, block_cfg)}
         report["reference"]["rm"] = phase_rm_reference(default_cfg, args.seed)
+        report["reference_f32"] = {
+            c.engine: phase_reference(dataclasses.replace(c, backbone_compute_dtype=None), args.seed,
+                                      atol=F32_REFERENCE_ATOL, mean_atol=F32_REFERENCE_MEAN_ATOL,
+                                      tag="phase 3f reference at f32")
+            for c in (gather_cfg, block_cfg)}
         block_per_chunk = BLOCK_PER_CHUNK
         report["slice"] = phase_slice(gather_cfg, pair, args.seed, {"gather_conv": 20}, "phase 4 gather slice")
         report["block_slice"] = phase_slice(block_cfg, pair, args.seed, block_per_chunk, "phase 5 block slice")
         report["default_slice"] = phase_slice(
             default_cfg, pair, args.seed, block_per_chunk, "phase 6 default chain (block engine + RM)")
+        # f32 convs: the same forward launches a chunk; the f32 path concatenates with torch.cat
+        report["f32_slice"] = {
+            "block": phase_slice(dataclasses.replace(default_cfg, backbone_compute_dtype=None), pair, args.seed,
+                                 {**block_per_chunk, "skip_concat": 0}, "phase 6f default chain at f32 convs"),
+            "gather": phase_slice(dataclasses.replace(gather_cfg, backbone_compute_dtype=None), pair, args.seed,
+                                  {"gather_conv": 20}, "phase 6f gather engine at f32 convs")}
         report["quality"] = phase_quality(args.seed, block_per_chunk)
         report["bench_kernels"] = phase_bench_kernels(args.seed)
         report["bench"] = phase_bench()
         report["cli"] = phase_cli()
         report["train"] = phase_train(pair, args.seed)
         report["backbone_train"] = phase_backbone_train(pair, args.seed)
+        report["backbone_train_f32"] = phase_backbone_train_f32(args.seed)
         report["zoo"] = phase_zoo(pair, args.seed)
+        report["device_pyramids"] = phase_device_pyramids(pair, args.seed)
+        report["dist"] = phase_dist(args.seed)
         report["total_s"] = time.perf_counter() - T0
+        f32 = report["f32"]
         entries = [{
             "name": "gather_conv",
             "route": "cuda",
@@ -1515,6 +1966,7 @@ def main() -> int:
             "library_ms": None,
             "library": "none: no PyTorch call computes a gathered sum of per-offset GEMMs",
             "unit": "the 20 convs of one rotation chunk's batched forward (gather engine)",
+            **_f32_fields(f32["gather_conv"], report["f32_slice"]["gather"]["launches"]["gather_conv"]),
         }]
         for name in ("gather_conv_dgrad", "gather_conv_wgrad"):
             t = bwd_totals[name]
@@ -1529,6 +1981,7 @@ def main() -> int:
                 "composite": _COMPOSITE_NOTES[name],
                 "unit": "the 20 convs of one full-width training forward's backward (one cloud, gather engine)",
                 "rerun_gap": t["rerun_gap"],
+                **_f32_fields(f32["bwd"][name], report["backbone_train_f32"]["cli"]["launches"][name]),
             })
         for name, replaces, unit in (
             ("block_gather", "scripts/experiment_pallas_gather.py:67",
@@ -1556,6 +2009,8 @@ def main() -> int:
                 "bench_caps_bound_ms": report["bench_kernels"]["bench"]["totals"][name]["bound_ms"],
                 # phase 10: the GF feature cache's describes (12 clouds x rotations)
                 "train_cache_launches": report["train"]["GF"]["describe_launches"][name],
+                **_f32_fields(f32["block"].get(name), report["f32_slice"]["block"]["launches"][name],
+                              t if name == "cell_dense" else None),
             })
         kernels = {"kernels": entries}
         report.update(kernels)

@@ -34,7 +34,9 @@ Baseline: the reference registers about 1623 3DMatch pairs in 37.1 min on
 an RTX 2080Ti (RoReg Appendix Table 1), about 0.73 pairs/s.
 
 Prints one JSON line: ``{"metric": "registered_pairs_per_sec_per_chip",
-"value", "unit", "vs_baseline", "detail"}``.
+"value", "unit", "vs_baseline", "detail"}``. Before the run a warning on
+stderr says when this configuration has not run in this checkout yet, so
+that its first describes build the kernels (``utils/compile_guard.py``).
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ from roreg_tpu_torch.dist.eval import pair_batch_from_stacks
 from roreg_tpu_torch.pipeline.config import PipelineConfig
 from roreg_tpu_torch.pipeline.extractor import PinnedArena, build_cloud_payloads, dispatch_cloud_payloads
 from roreg_tpu_torch.pipeline.registration import RegistrationPipeline
+from roreg_tpu_torch.utils.compile_guard import check_describe_signature, record_describe_signature
 from roreg_tpu_torch.weights import QUALITY_FULL_DIR, init_variables, load_components
 
 __all__ = ["BASELINE_PAIRS_PER_S", "bench_config", "run_bench", "main"]
@@ -257,7 +260,10 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--out", default=None, help="also write the result line to this file")
     args = ap.parse_args(argv)
-    result, _ = run_bench(bench_config(), device=args.device)
+    cfg = bench_config()
+    check_describe_signature(cfg, label="bench")
+    result, _ = run_bench(cfg, device=args.device)
+    record_describe_signature(cfg, label="bench")
     line = json.dumps(result)
     if args.out:
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)

@@ -25,9 +25,14 @@ for ``--steps`` (default 20000) steps on fragment pairs of the scenes
 variables to ``<checkpoint_dir>/backbone_variables/backbone.npz``, which
 ``train.checkpoints.load_pipeline_variables`` loads into either engine.
 
-Not ported: ``--n_devices`` above 1 (a data-parallel mesh, ROADMAP A7)
-raises ``NotImplementedError``; ``--n_devices`` 0 and 1 run on the one
-device.
+``--n_devices N`` trains a head data-parallel over a world of N
+processes, one a device (``dist.mesh.shard_train_step``: each rank runs
+its shard of every batch, and the update equals one process's on the
+whole batch); run it as ``torchrun --nproc_per_node N -m
+roreg_tpu_torch.cli.train --n_devices N ...`` (NCCL on the cards, gloo on
+the CPU); a world of another size raises. Only the first process writes
+logs and checkpoints. The backbone trains in one process, as in the
+reference, whose ``--n_devices`` shards the heads' steps only.
 """
 
 from __future__ import annotations
@@ -41,6 +46,8 @@ import numpy as np
 
 from roreg_tpu_torch.data.dataset import ThreeDMatchDataset
 from roreg_tpu_torch.data.synthetic import make_synthetic_scene
+from roreg_tpu_torch.dist import multihost
+from roreg_tpu_torch.dist.mesh import make_mesh, shard_train_step
 from roreg_tpu_torch.pipeline.config import PipelineConfig
 from roreg_tpu_torch.pipeline.registration import RegistrationPipeline
 from roreg_tpu_torch.train.backbone import backbone_pair_batches, make_backbone_train_step
@@ -115,9 +122,10 @@ def prepare(args) -> tuple[Trainer, dict]:
     Returns the trainer and ``{"pipeline", "scenes", "cache"}`` (``cache``
     the GF/ET feature cache, else None)."""
     comp = args.component.lower()
-    _check_devices(args)
+    mesh = _mesh(args)
     pipe, variables = train_pipeline(args)
-    scenes = build_scenes(args)
+    with multihost.primary_first():  # the first process writes the scenes the others read
+        scenes = build_scenes(args)
     rng = np.random.default_rng(args.seed + 1)
     tcfg_kw = dict(group_size=args.group_size, model_dir=args.checkpoint_dir)
     if args.val_interval:
@@ -149,13 +157,20 @@ def prepare(args) -> tuple[Trainer, dict]:
         val_batches = [next(data) for _ in range(args.val_batches)]
         val_fn = make_val_fn(comp, args.group_size, val_batches, frozen=frozen)
     trainer = Trainer(tcfg, data, val_fn=val_fn, frozen=frozen, device=pipe.device)
+    if mesh is not None:
+        trainer.step_fn = shard_train_step(trainer.step_fn, mesh)
     return trainer, {"pipeline": pipe, "scenes": scenes, "cache": cache}
 
 
-def _check_devices(args) -> None:
-    if args.n_devices > 1:
-        raise NotImplementedError(f"--n_devices {args.n_devices} (a data-parallel mesh) is not ported: "
-                                  "ROADMAP.md queue A, item A7; 0 or 1 runs on the one device")
+def _mesh(args):
+    """``--n_devices``: None for 0; else the mesh of the world this process
+    joins from ``torchrun``'s environment, which must hold that many
+    processes (each then computes on its own card unless ``--device cpu``)."""
+    if not args.n_devices:
+        return None
+    backend = "gloo" if args.device == "cpu" else None
+    multihost.initialize(backend=backend)
+    return make_mesh(args.n_devices, device=args.device)
 
 
 def train_backbone(args) -> dict:
@@ -164,7 +179,9 @@ def train_backbone(args) -> dict:
     then draws the next. Returns ``final_step``, the checkpoint's directory,
     every step's loss, and the seconds spent building batches on the host
     (pyramids and pairing) and in the steps (synchronised)."""
-    _check_devices(args)
+    if args.n_devices > 1:
+        raise ValueError(f"--n_devices {args.n_devices}: the backbone trains in one process (the reference's "
+                         "--n_devices shards the heads' steps only)")
     cfg = PipelineConfig(voxel_size=args.voxel_size, group_size=args.group_size,
                          num_keypoints=SCENE["num_keypoints"])
     scenes = build_scenes(args)

@@ -68,6 +68,21 @@
 // 16-byte stores and leaves without starting the producers; a block without
 // occupied cells beside live ones reads no region row (zero-filled) and its
 // output is masked.
+//
+// The f32 entry (up_conv_f32) takes f32 operands as two bf16 terms each,
+// split by the caller: reg = reg_hi + reg_lo and w = w_hi + w_lo, each lo
+// the bf16 rounding of what hi leaves, so about 2^-18 of each operand is
+// lost. It computes reg_hi @ w_hi + reg_hi @ w_lo + reg_lo @ w_hi (the
+// dropped reg_lo @ w_lo is as small) with the same region, rings and
+// tiles, as a loop over the terms in two passes: the first stages reg_hi
+// and multiplies each (chunk, tap) fragment by both weight terms into the
+// class's accumulators; after a barrier of both warpgroups the second
+// stages reg_lo in the same region and multiplies by w_hi, each class's
+// accumulators starting from the sums the first pass stored (each thread
+// reads back exactly the output elements it wrote). The region keeps its
+// size (a stacked 3 x Cin region would not fit at Cin 256), and a call is
+// still one launch. The weights come as the packed w_hi stages followed by
+// the packed w_lo stages.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -117,11 +132,15 @@ static_assert(Layout<128, false>::bytes(256) + Layout<128, false>::kStatic <= 23
 static_assert(2 * (Layout<128, true>::bytes(128) + Layout<128, true>::kStatic + 1024) <= 233472,
               "two thread blocks an SM with the small rings");
 
-template <int COUT, bool SMALL>
+// F32: two passes over the terms of split f32 operands (the header's last
+// paragraph); else one pass over bf16 operands
+template <int COUT, bool SMALL, bool F32>
 __global__ void __launch_bounds__(Layout<COUT, SMALL>::kThreads, SMALL ? 2 : 1)
-up_conv_kernel(const __nv_bfloat16* __restrict__ reg, const __nv_bfloat16* __restrict__ wp,
-               const uint8_t* __restrict__ mask, float* __restrict__ out, int64_t nb, int cin) {
+up_conv_kernel(const __nv_bfloat16* __restrict__ reg, const __nv_bfloat16* __restrict__ reg_lo,
+               const __nv_bfloat16* __restrict__ wp, const uint8_t* __restrict__ mask,
+               float* __restrict__ out, int64_t nb, int cin) {
   using L = Layout<COUT, SMALL>;
+  constexpr int kPasses = F32 ? 2 : 1;
   constexpr int kFB = L::kFB;
   constexpr int kStages = L::kStages;
   extern __shared__ __align__(1024) unsigned char smem[];
@@ -163,18 +182,26 @@ up_conv_kernel(const __nv_bfloat16* __restrict__ reg, const __nv_bfloat16* __res
     const uint32_t full = full0 + 8 * ring * kStages;
     const uint32_t empty = empty0 + 8 * ring * kStages;
     const uint32_t ring_s = smem_addr(smem + ring * kStages * L::kStageBytes);
+    // the stages in the consumers' order: pass, class, chunk, tap, weight term
+    const int64_t term_elems = static_cast<int64_t>(chunks) * kTaps * (L::kStageBytes / 2);
     int s = 0;
-    for (int ci = 0; ci < kClassesPerGroup; ++ci) {
-      const int* map = c_maps + c_split[ring * kClassesPerGroup + ci] * kMapWords;
-      const int nt = map[8];
-      for (int c = 0; c < chunks; ++c) {
-        for (int t = 0; t < nt; ++t, ++s) {
-          const int slot = s % kStages;
-          if (s >= kStages) mbar_wait(empty + 8 * slot, (s / kStages - 1) & 1);
-          mbar_arrive_expect_tx(full + 8 * slot, L::kStageBytes);
-          bulk_copy(ring_s + slot * L::kStageBytes,
-                    wp + (static_cast<int64_t>(c) * kTaps + map[9 + t]) * (L::kStageBytes / 2),
-                    L::kStageBytes, full + 8 * slot);
+    for (int p = 0; p < kPasses; ++p) {
+      const int terms = F32 && p == 0 ? 2 : 1;
+      for (int ci = 0; ci < kClassesPerGroup; ++ci) {
+        const int* map = c_maps + c_split[ring * kClassesPerGroup + ci] * kMapWords;
+        const int nt = map[8];
+        for (int c = 0; c < chunks; ++c) {
+          for (int t = 0; t < nt; ++t) {
+            for (int w = 0; w < terms; ++w, ++s) {
+              const int slot = s % kStages;
+              if (s >= kStages) mbar_wait(empty + 8 * slot, (s / kStages - 1) & 1);
+              mbar_arrive_expect_tx(full + 8 * slot, L::kStageBytes);
+              bulk_copy(ring_s + slot * L::kStageBytes,
+                        wp + w * term_elems +
+                            (static_cast<int64_t>(c) * kTaps + map[9 + t]) * (L::kStageBytes / 2),
+                        L::kStageBytes, full + 8 * slot);
+            }
+          }
         }
       }
     }
@@ -195,16 +222,19 @@ up_conv_kernel(const __nv_bfloat16* __restrict__ reg, const __nv_bfloat16* __res
   // a block without occupied cells reads nothing and stays zero
   __nv_bfloat16* region = reinterpret_cast<__nv_bfloat16*>(smem + L::kRegionOff);
   const int parts = cin / 16;  // 16-byte pieces of a row's channel half
-  for (int h = 0; h < 2; ++h) {
-    for (int e = tid; e < kFB * kTaps * parts; e += kGroups * kWG) {
-      const int row = e / parts;  // fine block * 27 + region cell
-      const int part = h * parts + (e - row * parts);
-      const bool live = live_s[row / kTaps] != 0;
-      const __nv_bfloat16* src = live ? reg + (b0 * kTaps + row) * cin + part * 8 : reg;
-      cp_async_16(smem_addr(region + row * pitch + part * 8), src, live ? 16 : 0);
+  auto stage_region = [&](const __nv_bfloat16* from) {
+    for (int h = 0; h < 2; ++h) {
+      for (int e = tid; e < kFB * kTaps * parts; e += kGroups * kWG) {
+        const int row = e / parts;  // fine block * 27 + region cell
+        const int part = h * parts + (e - row * parts);
+        const bool live = live_s[row / kTaps] != 0;
+        const __nv_bfloat16* src = live ? from + (b0 * kTaps + row) * cin + part * 8 : from;
+        cp_async_16(smem_addr(region + row * pitch + part * 8), src, live ? 16 : 0);
+      }
+      cp_async_commit();
     }
-    cp_async_commit();
-  }
+  };
+  stage_region(reg);
 
   const int warp = (tid % kWG) / 32;
   const int lane = tid % 32;
@@ -217,19 +247,58 @@ up_conv_kernel(const __nv_bfloat16* __restrict__ reg, const __nv_bfloat16* __res
   const uint32_t ring_s = smem_addr(smem + g * kStages * L::kStageBytes);
   int s = 0;  // this warpgroup's weight stage
 
+  // this thread's accumulator element 4j + 2h + e: class cell lane / 4 of
+  // fine block 2 warp + h, column 8j + 2 (lane % 4) + e
+  auto out_at = [&](int cell, int h) {
+    return out + ((b0 + 2 * warp + h) * kCells + cell) * COUT + (lane & 3) * 2;
+  };
+
   // one class of NT taps: chunk by chunk, tap by tap, one commit group per
-  // (chunk, tap) with one more in flight; the A registers alternate by the
-  // stage's parity, which the unrolled (chunk pair, tap) loop makes static
-  auto run_class = [&](auto nt_c, const int* map, bool first) {
+  // (chunk, tap, weight term) with one more in flight; the A registers of a
+  // tap serve its weight terms (one, or at f32 `terms`, a loop kept rolled
+  // so that the f32 entry compiles to the size of the bf16 one) and
+  // alternate by the tap's parity, which the unrolled (chunk pair, tap)
+  // loop makes static. With carry the accumulators start from the sums this
+  // thread stored in the first pass.
+  auto run_class = [&](auto nt_c, const int* map, bool first, bool carry, int terms) {
     constexpr int NT = decltype(nt_c)::value;
     float acc[COUT / 2];
 #pragma unroll
     for (int j = 0; j < COUT / 2; ++j) acc[j] = 0.f;
+    if (carry) {
+      const int cell = map[lane >> 2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        if (b0 + 2 * warp + h >= nb) continue;
+        const float* o = out_at(cell, h);
+#pragma unroll
+        for (int j = 0; j < COUT / 8; ++j) {
+          const float2 v = *reinterpret_cast<const float2*>(o + j * 8);
+          acc[4 * j + 2 * h] = v.x;
+          acc[4 * j + 2 * h + 1] = v.y;
+        }
+      }
+    }
     uint32_t a_row[NT];
 #pragma unroll
     for (int t = 0; t < NT; ++t) a_row[t] = region_lane + map[17 + (lane & 7) * 8 + t] * pitch * 2;
     uint32_t a[2][4];
     const int s0 = s;
+    // one weight stage's products with the A registers `a`
+    auto mma = [&](const uint32_t (&a_t)[4]) {
+      const int slot = s % kStages;
+      mbar_wait(full + 8 * slot, (s / kStages) & 1);
+      __syncwarp();  // converged for the .aligned wgmma instructions
+      wgmma_fence();
+      wgmma_tile<COUT>(acc, a_t, ring_s + slot * L::kStageBytes);
+      wgmma_commit();
+      if (s > s0) {
+        wgmma_wait<1>();  // the previous stage's products have read it and its A
+        if (lane == 0) mbar_arrive(empty + 8 * ((s - 1) % kStages));
+        __syncwarp();
+      }
+      ++s;
+    };
     if (first) {  // the first channel half has landed, for both warpgroups
       cp_async_wait<1>();
       named_barrier(1, kGroups * kWG);
@@ -245,33 +314,25 @@ up_conv_kernel(const __nv_bfloat16* __restrict__ reg, const __nv_bfloat16* __res
         for (int t = 0; t < NT; ++t) {
           const int buf = (cc * NT + t) & 1;
           ldmatrix_x4(a_row[t] + (c + cc) * kKC * 2, a[buf]);
-          const int slot = s % kStages;
-          mbar_wait(full + 8 * slot, (s / kStages) & 1);
-          __syncwarp();  // converged for the .aligned wgmma instructions
-          wgmma_fence();
-          wgmma_tile<COUT>(acc, a[buf], ring_s + slot * L::kStageBytes);
-          wgmma_commit();
-          if (s > s0) {
-            wgmma_wait<1>();  // the previous stage's products have read it and its A
-            if (lane == 0) mbar_arrive(empty + 8 * ((s - 1) % kStages));
-            __syncwarp();
+          if constexpr (F32) {
+#pragma unroll 1
+            for (int w = 0; w < terms; ++w) mma(a[buf]);
+          } else {
+            mma(a[buf]);
           }
-          ++s;
         }
       }
     }
     wgmma_wait<0>();
     if (lane == 0) mbar_arrive(empty + 8 * ((s - 1) % kStages));
 
-    // accumulator element 4j + 2h + e: class cell lane / 4 of fine block
-    // 2 warp + h, column 8j + 2 (lane % 4) + e
     const int cell = map[lane >> 2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int fb = 2 * warp + h;
       if (b0 + fb >= nb) continue;
       const bool keep = mask_s[fb * kCells + cell] != 0;
-      float* o = out + ((b0 + fb) * kCells + cell) * COUT + (lane & 3) * 2;
+      float* o = out_at(cell, h);
 #pragma unroll
       for (int j = 0; j < COUT / 8; ++j) {
         *reinterpret_cast<float2*>(o + j * 8) =
@@ -280,14 +341,22 @@ up_conv_kernel(const __nv_bfloat16* __restrict__ reg, const __nv_bfloat16* __res
     }
   };
 
-  for (int ci = 0; ci < kClassesPerGroup; ++ci) {
-    const int* map = c_maps + c_split[g * kClassesPerGroup + ci] * kMapWords;
-    const bool first = ci == 0;
-    switch (map[8]) {
-      case 1: run_class(Int<1>{}, map, first); break;
-      case 2: run_class(Int<2>{}, map, first); break;
-      case 4: run_class(Int<4>{}, map, first); break;
-      default: run_class(Int<8>{}, map, first); break;
+  for (int p = 0; p < kPasses; ++p) {
+    const bool carry = p == 1;
+    if (carry) {  // reg_hi @ (w_hi, w_lo) is stored; + reg_lo @ w_hi
+      named_barrier(1, kGroups * kWG);  // both warpgroups are done with reg_hi
+      stage_region(reg_lo);
+    }
+    const int terms = F32 && p == 0 ? 2 : 1;
+    for (int ci = 0; ci < kClassesPerGroup; ++ci) {
+      const int* map = c_maps + c_split[g * kClassesPerGroup + ci] * kMapWords;
+      const bool first = ci == 0;
+      switch (map[8]) {
+        case 1: run_class(Int<1>{}, map, first, carry, terms); break;
+        case 2: run_class(Int<2>{}, map, first, carry, terms); break;
+        case 4: run_class(Int<4>{}, map, first, carry, terms); break;
+        default: run_class(Int<8>{}, map, first, carry, terms); break;
+      }
     }
   }
 }
@@ -295,18 +364,19 @@ up_conv_kernel(const __nv_bfloat16* __restrict__ reg, const __nv_bfloat16* __res
 // the small rings, two thread blocks an SM, where the region is small
 bool small_ring(int cin) { return cin <= 128; }
 
-template <int COUT, bool SMALL>
-int launch(const void* reg, const void* wp, const void* mask, void* out, int64_t nb, int cin,
-           cudaStream_t stream) {
+template <int COUT, bool SMALL, bool F32>
+int launch(const void* reg, const void* reg_lo, const void* wp, const void* mask, void* out,
+           int64_t nb, int cin, cudaStream_t stream) {
   using L = Layout<COUT, SMALL>;
-  auto kernel = up_conv_kernel<COUT, SMALL>;
+  auto kernel = up_conv_kernel<COUT, SMALL, F32>;
   const int bytes = L::bytes(cin);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned grid = static_cast<unsigned>((nb + L::kFB - 1) / L::kFB);
   kernel<<<grid, L::kThreads, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(reg), static_cast<const __nv_bfloat16*>(wp),
-      static_cast<const uint8_t*>(mask), static_cast<float*>(out), nb, cin);
+      static_cast<const __nv_bfloat16*>(reg), static_cast<const __nv_bfloat16*>(reg_lo),
+      static_cast<const __nv_bfloat16*>(wp), static_cast<const uint8_t*>(mask),
+      static_cast<float*>(out), nb, cin);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -395,7 +465,25 @@ int up_conv_bf16(const void* reg, const void* wp, const void* mask, void* out, i
   int rc = 0;
   const bool ok = dispatch(cin, cout, [&](auto co, auto small) {
     if (nb > 0) {
-      rc = launch<decltype(co)::value, decltype(small)::value != 0>(reg, wp, mask, out, nb, cin, s);
+      rc = launch<decltype(co)::value, decltype(small)::value != 0, false>(reg, nullptr, wp, mask,
+                                                                            out, nb, cin, s);
+    }
+  });
+  return ok ? rc : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The f32 entry (the header's last paragraph): reg_hi and reg_lo (B, 27,
+// Cin) bf16 are the two terms of the f32 region, wp the packed w_hi stages
+// followed by the packed w_lo stages. Launches and returns as up_conv_bf16.
+int up_conv_f32(const void* reg_hi, const void* reg_lo, const void* wp, const void* mask, void* out,
+                int64_t nb, int cin, int cout, void* stream) {
+  if (nb < 0 || nb > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc = 0;
+  const bool ok = dispatch(cin, cout, [&](auto co, auto small) {
+    if (nb > 0) {
+      rc = launch<decltype(co)::value, decltype(small)::value != 0, true>(reg_hi, reg_lo, wp, mask,
+                                                                           out, nb, cin, s);
     }
   });
   return ok ? rc : static_cast<int>(cudaErrorInvalidValue);

@@ -16,13 +16,17 @@ fixed order) or from ``generator``. Pairs that share a cloud draw
 independent subsets either way.
 
 The sharded variants (``eval_pairs_sharded``, ``pair_stacks_sharded``)
-belong to the distribution work of ROADMAP item A7 and raise.
+split the pair axis over a ``dist.mesh.Mesh``: each rank runs its
+contiguous shard of the pairs, with its shard of the draws, and the
+results are gathered on every rank in pair order, so with the draws given
+they equal the batched stage's.
 """
 
 from __future__ import annotations
 
 import torch
 
+from roreg_tpu_torch.dist.collectives import gather_rows, shard_rows
 from roreg_tpu_torch.pipeline.matcher import top_k_indices
 from roreg_tpu_torch.pipeline.registration import RegistrationPipeline
 
@@ -91,11 +95,54 @@ def pair_batch_from_stacks(
     }
 
 
-def eval_pairs_sharded(*args, **kwargs):
-    """The pair axis sharded over a device mesh: not ported yet."""
-    raise NotImplementedError("eval_pairs_sharded shards the pair axis over a mesh: ROADMAP.md queue A, item A7")
+def _shard(mesh, x):
+    """This rank's shard of a pair-axis input (None stays None)."""
+    if x is None:
+        return None
+    return shard_rows(torch.as_tensor(x), None)
 
 
-def pair_stacks_sharded(*args, **kwargs):
-    """:func:`pair_batch_from_stacks` sharded over a device mesh: not ported yet."""
-    raise NotImplementedError("pair_stacks_sharded shards the pair axis over a mesh: ROADMAP.md queue A, item A7")
+def _gathered(mesh, out: dict) -> dict:
+    """Every rank's pair-axis outputs, in pair order, on every rank."""
+    return {k: gather_rows(v.contiguous(), None) for k, v in out.items()}
+
+
+def _check_pairs(mesh, b: int) -> None:
+    if b % mesh.size:
+        raise ValueError(f"{b} pairs do not divide among {mesh.size} ranks: pad the pair axis "
+                         "(duplicate pairs) to a multiple of the mesh size")
+
+
+@torch.inference_mode()
+def eval_pairs_sharded(mesh, pipe: RegistrationPipeline, bb0, bb1, gf0, gf1, k0, k1, *, perm=None,
+                       buckets=None, gumbel=None, generator: torch.Generator | None = None) -> dict:
+    """:func:`batched_pair_stage` with the pair axis split over ``mesh``:
+    the inputs (B, keynum, ...) and the draws (``perm`` (B, M), ``buckets``
+    (B, max_iter), ``gumbel`` (B, max_iter, M)) are cut into the ranks'
+    contiguous shards; each rank runs its shard, and every rank gets the
+    stacked outputs of all B pairs. B must be a multiple of the mesh size,
+    as in the reference. Draws not given are drawn per shard from
+    ``generator``, so only given draws reproduce the batched stage."""
+    _check_pairs(mesh, bb0.shape[0])
+    cut = lambda x: _shard(mesh, x)  # noqa: E731
+    out = pipe.batched_pair_stage(*map(cut, (bb0, bb1, gf0, gf1, k0, k1)), perm=cut(perm),
+                                  buckets=cut(buckets), gumbel=cut(gumbel), generator=generator)
+    return _gathered(mesh, out)
+
+
+@torch.inference_mode()
+def pair_stacks_sharded(mesh, pipe: RegistrationPipeline, i0, i1, all_bb, all_gf, all_kp, *, noise=None,
+                        per_pair_sample: bool = False, perm=None, buckets=None, gumbel=None,
+                        generator: torch.Generator | None = None) -> dict[str, torch.Tensor]:
+    """:func:`pair_batch_from_stacks` with the pair axis split over
+    ``mesh``: every rank holds the scene's descriptor stacks whole, takes
+    its contiguous shard of the pairs ``(i0, i1)`` and of their draws
+    (``noise`` (B, 2, K), ``perm``, ``buckets``, ``gumbel``), and every rank
+    gets all B pairs' outputs in pair order. B must be a multiple of the
+    mesh size."""
+    _check_pairs(mesh, len(i0))
+    cut = lambda x: _shard(mesh, x)  # noqa: E731
+    out = pair_batch_from_stacks(pipe, cut(i0), cut(i1), all_bb, all_gf, all_kp, noise=cut(noise),
+                                 per_pair_sample=per_pair_sample, perm=cut(perm), buckets=cut(buckets),
+                                 gumbel=cut(gumbel), generator=generator)
+    return _gathered(mesh, out)

@@ -14,7 +14,10 @@ through :class:`GatherConvFn`, whose backward runs the two kernels of
 versions (autograd through :func:`gather_conv_plain`) on the CPU; the
 gathered ``(M, K, Cin)`` matrix is never saved. The kernels are built with
 ``nvcc`` into the port's build directory at first use and bound with
-``ctypes``.
+``ctypes``. Operands are bf16 or f32: f32 ones run as two bf16 terms each
+(``kernels/split.py``): the forward as one launch over the stacked
+operands at three times Cin, dgrad and wgrad as one launch per term of
+the operand they read as bf16.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 
 from roreg_tpu_torch.build import CudaKernel
 from roreg_tpu_torch.kernels.halo_conv import pack_weights
+from roreg_tpu_torch.kernels.split import split_bf16x2, stack_terms
 
 __all__ = [
     "gather_conv",
@@ -108,9 +112,13 @@ class GatherConvKernel(CudaKernel):
     def __call__(
         self, feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor
     ) -> torch.Tensor:
-        if feats.dtype != torch.bfloat16 or weights.dtype != torch.bfloat16:
+        """feats (N, Cin) and weights (K, Cin, Cout), both bf16 or both f32
+        (one launch over the stacked split operands at 3 Cin), nbr (M, K)
+        int32 -> (M, Cout) f32."""
+        f32 = feats.dtype == weights.dtype == torch.float32
+        if not f32 and (feats.dtype != torch.bfloat16 or weights.dtype != torch.bfloat16):
             raise TypeError(
-                f"gather_conv kernel takes bf16 feats and weights, got "
+                f"gather_conv kernel takes bf16 or f32 feats and weights (one type), got "
                 f"{feats.dtype} and {weights.dtype}"
             )
         if nbr.dtype != torch.int32:
@@ -130,12 +138,15 @@ class GatherConvKernel(CudaKernel):
         for name, t in (("feats", feats), ("nbr", nbr), ("weights", weights)):
             if not t.is_contiguous():
                 raise ValueError(f"gather_conv kernel: {name} must be contiguous")
-        if feats.data_ptr() % 16:
+        if not f32 and feats.data_ptr() % 16:  # f32 operands are split into new tensors
             raise ValueError("gather_conv kernel: feats must be 16-byte aligned")
         lib = self._load()
         out = torch.empty((m, cout), dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
+            if f32:
+                feats, weights = stack_terms(feats, weights)
+                c *= 3
             wp = pack_weights(weights, tap_major=True)
             rc = lib.gather_conv_bf16(
                 feats.data_ptr(), nbr.data_ptr(), wp.data_ptr(), out.data_ptr(),
@@ -316,12 +327,16 @@ class GatherConvBwdKernel(CudaKernel):
     def __call__(
         self, feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor, dy: torch.Tensor
     ) -> torch.Tensor:
-        """feats (N, Cin) and weights (K, Cin, Cout) bf16 (dgrad reads only
-        the shape of feats, wgrad only the shape of weights), nbr (M, K)
-        int32, dy (M, Cout) f32 -> dX (N, Cin) or dW (K, Cin, Cout) f32."""
-        if feats.dtype != torch.bfloat16 or weights.dtype != torch.bfloat16:
-            raise TypeError(f"gather_conv {self.which} kernel takes bf16 feats and weights, got "
-                            f"{feats.dtype} and {weights.dtype}")
+        """feats (N, Cin) and weights (K, Cin, Cout), both bf16 or both f32
+        (dgrad reads only the shape of feats, wgrad only the shape of
+        weights), nbr (M, K) int32, dy (M, Cout) f32 -> dX (N, Cin) or dW
+        (K, Cin, Cout) f32. At f32 the operand the kernel reads as bf16 (W
+        for dgrad, X for wgrad) is split into two bf16 terms, the kernel
+        runs once per term, and the two f32 results are summed."""
+        f32 = feats.dtype == weights.dtype == torch.float32
+        if not f32 and (feats.dtype != torch.bfloat16 or weights.dtype != torch.bfloat16):
+            raise TypeError(f"gather_conv {self.which} kernel takes bf16 or f32 feats and weights "
+                            f"(one type), got {feats.dtype} and {weights.dtype}")
         if nbr.dtype != torch.int32 or dy.dtype != torch.float32:
             raise TypeError(f"gather_conv {self.which} kernel takes an int32 table and an f32 "
                             f"gradient, got {nbr.dtype} and {dy.dtype}")
@@ -341,18 +356,32 @@ class GatherConvBwdKernel(CudaKernel):
         for name, t in (("feats", feats), ("nbr", nbr), ("weights", weights), ("dy", dy)):
             if not t.is_contiguous():
                 raise ValueError(f"gather_conv {self.which} kernel: {name} must be contiguous")
+        read = weights if self.which == "dgrad" else feats  # the operand read as bf16
+        terms = split_bf16x2(read) if f32 else (read,)
+        out = None
+        for term in terms:
+            part = self._launch(term, nbr, dy, n, c, cout, k)
+            out = part if out is None else out.add_(part)
+        return out
+
+    def _launch(self, read: torch.Tensor, nbr: torch.Tensor, dy: torch.Tensor, n: int, c: int,
+                cout: int, k: int) -> torch.Tensor:
+        """One launch with the bf16 operand ``read``: the weights (K, Cin,
+        Cout) for dgrad, the features (N, Cin) for wgrad."""
+        m = nbr.shape[0]
+        dev = dy.device
         kin, kout = bwd_kernel_widths(self.which, c, cout)
         lib = self._load()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
             if self.which == "dgrad":
                 dy_k = _aligned(_pad_cols(dy, kout))
-                wt = pack_dgrad_weights(weights)
+                wt = pack_dgrad_weights(read)
                 out = torch.empty((n, kin), dtype=torch.float32, device=dev)
                 rc = lib.gather_conv_dgrad(dy_k.data_ptr(), nbr.data_ptr(), wt.data_ptr(),
                                            out.data_ptr(), m, n, kin, kout, k, stream)
             else:
-                x = _aligned(_pad_cols(feats, kin))
+                x = _aligned(_pad_cols(read, kin))
                 scratch = torch.empty(self.launch_shape(m, c, cout, k)["scratch_bytes"],
                                       dtype=torch.uint8, device=dev)
                 out = torch.empty((k, kin, cout), dtype=torch.float32, device=dev)
@@ -417,33 +446,36 @@ def gather_conv(
     return _forward(feats, nbr, weights)
 
 
-def conv_work(nbr: torch.Tensor, cin: int, cout: int) -> tuple[int, int]:
+def conv_work(nbr: torch.Tensor, cin: int, cout: int, elem_bytes: int = 2) -> tuple[int, int]:
     """(operations, bytes) one call needs with this table: 2*Cin*Cout per
     valid (row, offset) entry; bytes for each source row the table
-    references read once (bf16), the whole table and the bf16 weights read
-    once, and the whole f32 output written once."""
+    references read once, the whole table and the weights read once (at
+    ``elem_bytes`` an element: 2 for bf16, 4 for f32 operands), and the
+    whole f32 output written once."""
     m, k = nbr.shape
     valid = nbr >= 0
     ops = 2 * int(valid.sum()) * cin * cout
     rows_read = int(torch.unique(nbr[valid]).numel())
-    nbytes = rows_read * cin * 2 + m * k * nbr.element_size() + k * cin * cout * 2 + m * cout * 4
+    nbytes = (rows_read * cin + k * cin * cout) * elem_bytes + m * k * nbr.element_size() + m * cout * 4
     return ops, nbytes
 
 
-def bwd_work(which: str, nbr: torch.Tensor, n: int, cin: int, cout: int) -> tuple[int, int]:
+def bwd_work(which: str, nbr: torch.Tensor, n: int, cin: int, cout: int,
+             elem_bytes: int = 2) -> tuple[int, int]:
     """(operations, bytes) one dgrad or wgrad call needs with this table:
     2*Cin*Cout per valid entry (f32 dY with bf16 W or X, TF32 on the
     tensor cores); bytes for the f32 dY rows that have
     a valid entry, the whole table, and for dgrad the bf16 weights read
     once and the whole f32 (N, Cin) dX written once, for wgrad each
     referenced bf16 source row read once and the f32 (K, Cin, Cout) dW
-    written once."""
+    written once (W or X at ``elem_bytes`` an element: 4 for f32
+    operands)."""
     m, k = nbr.shape
     valid = nbr >= 0
     ops = 2 * int(valid.sum()) * cin * cout
     nbytes = int(valid.any(1).sum()) * cout * 4 + m * k * nbr.element_size()
     if which == "dgrad":
-        nbytes += k * cin * cout * 2 + n * cin * 4
+        nbytes += k * cin * cout * elem_bytes + n * cin * 4
     else:
-        nbytes += int(torch.unique(nbr[valid]).numel()) * cin * 2 + k * cin * cout * 4
+        nbytes += int(torch.unique(nbr[valid]).numel()) * cin * elem_bytes + k * cin * cout * 4
     return ops, nbytes

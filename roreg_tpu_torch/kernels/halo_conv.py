@@ -13,7 +13,9 @@ stands in for.
 
 :func:`halo_conv` runs the plain PyTorch version for tensors on the CPU and
 the CUDA kernel of ``csrc/halo_conv.cu`` for tensors on the GPU; on a GPU
-it launches the kernel or raises.
+it launches the kernel or raises. Operands are bf16, or f32, which run as
+one launch over the stacked two-term split operands at three times Cin
+(``kernels/split.py``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import numpy as np
 import torch
 
 from roreg_tpu_torch.build import CudaKernel
+from roreg_tpu_torch.kernels.split import stack_terms
 
 __all__ = [
     "BLOCK",
@@ -164,9 +167,11 @@ class HaloConvKernel(CudaKernel):
         dev = feats.device
         if dev.type != "cuda" or any(t.device != dev for t in (tbl, w, cell_mask)):
             raise ValueError("halo_conv kernel: every tensor must be on one CUDA device")
-        if feats.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
+        f32 = feats.dtype == w.dtype == torch.float32
+        if not f32 and (feats.dtype != torch.bfloat16 or w.dtype != torch.bfloat16):
             raise TypeError(
-                f"halo_conv kernel takes bf16 feats and weights, got {feats.dtype} and {w.dtype}"
+                f"halo_conv kernel takes bf16 or f32 feats and weights (one type), got "
+                f"{feats.dtype} and {w.dtype}"
             )
         if tbl.dtype != torch.int32:
             raise TypeError(f"halo_conv kernel takes an int32 table, got {tbl.dtype}")
@@ -193,12 +198,15 @@ class HaloConvKernel(CudaKernel):
         for name, t in (("feats", feats), ("tbl", tbl), ("w", w), ("cell_mask", cell_mask)):
             if not t.is_contiguous():
                 raise ValueError(f"halo_conv kernel: {name} must be contiguous")
-        if feats.data_ptr() % 16:
+        if not f32 and feats.data_ptr() % 16:  # f32 operands are split into new tensors
             raise ValueError("halo_conv kernel: feats must be 16-byte aligned")
         lib = self._load()
         out = torch.empty((b, CELLS, cout), dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
+            if f32:
+                feats, w = stack_terms(feats, w)
+                cin *= 3
             wp = pack_weights(w)
             rc = lib.halo_conv_bf16(
                 feats.data_ptr(), tbl.data_ptr(), wp.data_ptr(),
@@ -223,13 +231,15 @@ def halo_conv(
 
 
 def halo_work(
-    tbl: torch.Tensor, cell_mask: torch.Tensor, cin: int, cout: int, stride: int
+    tbl: torch.Tensor, cell_mask: torch.Tensor, cin: int, cout: int, stride: int,
+    elem_bytes: int = 2,
 ) -> tuple[int, int]:
-    """(operations, bytes) one bf16 call needs with these tables: 2 * Cin *
-    Cout for each occupied output cell and each of its 27 taps whose source
+    """(operations, bytes) one call needs with these tables: 2 * Cin * Cout
+    for each occupied output cell and each of its 27 taps whose source
     block exists (an absent block contributes nothing); bytes for every
     source cell those taps reach (read once), the whole table and mask, the
-    weights once, and the whole f32 output."""
+    weights once (features and weights at ``elem_bytes`` an element: 2 for
+    bf16, 4 for f32 operands), and the whole f32 output."""
     koff, cell, q = (torch.tensor(m, dtype=torch.long, device=tbl.device) for m in halo_maps(3, stride))
     q = q.view(CELLS, 27)
     live = cell_mask.any(dim=1)
@@ -243,10 +253,9 @@ def halo_work(
     used = exists & ((mask.float() @ reach) > 0)
     cells_read = int(torch.unique((blk * CELLS + cell)[used]).numel())
     nbytes = (
-        cells_read * cin * 2
+        (cells_read * cin + 27 * cin * cout) * elem_bytes
         + tbl.numel() * tbl.element_size()
         + cell_mask.numel()
-        + 27 * cin * cout * 2
         + tbl.shape[0] * CELLS * cout * 4
     )
     return ops, nbytes

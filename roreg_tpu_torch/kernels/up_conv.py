@@ -11,7 +11,9 @@ as a one-hot GEMM.
 
 :func:`up_conv` runs the plain PyTorch version for tensors on the CPU and
 the CUDA kernel of ``csrc/up_conv.cu`` for tensors on the GPU; on a GPU it
-launches the kernel or raises.
+launches the kernel or raises. Operands are bf16, or f32, which the
+kernel's f32 entry takes as two bf16 terms each (``kernels/split.py``),
+its three products run as a loop over the terms inside one launch.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import torch
 
 from roreg_tpu_torch.build import CudaKernel
 from roreg_tpu_torch.kernels.halo_conv import BLOCK, CELLS, pack_weights
+from roreg_tpu_torch.kernels.split import split_bf16x2
 
 __all__ = [
     "UP_CLASSES",
@@ -166,6 +169,8 @@ class UpConvKernel(CudaKernel):
         lib.up_conv_set_maps.argtypes = [vp, ci, vp, ci]
         lib.up_conv_bf16.restype = ci
         lib.up_conv_bf16.argtypes = [vp, vp, vp, vp, i64, ci, ci, vp]
+        lib.up_conv_f32.restype = ci
+        lib.up_conv_f32.argtypes = [vp, vp, vp, vp, vp, i64, ci, ci, vp]
         lib.up_conv_launch_shape.restype = ci
         lib.up_conv_launch_shape.argtypes = [ci, ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
 
@@ -178,8 +183,12 @@ class UpConvKernel(CudaKernel):
         return {"blocks_per_cta": blocks.value, "stages": stages.value}
 
     def __call__(self, reg: torch.Tensor, w: torch.Tensor, cell_mask: torch.Tensor) -> torch.Tensor:
-        if reg.dtype != torch.bfloat16 or w.dtype != torch.bfloat16:
-            raise TypeError(f"up_conv kernel takes bf16 regions and weights, got {reg.dtype} and {w.dtype}")
+        """reg (B, 27, Cin) and w (27, Cin, Cout), both bf16 or both f32 (the
+        kernel's f32 entry), cell_mask (B, 64) bool -> (B, 64, Cout) f32."""
+        f32 = reg.dtype == w.dtype == torch.float32
+        if not f32 and (reg.dtype != torch.bfloat16 or w.dtype != torch.bfloat16):
+            raise TypeError(f"up_conv kernel takes bf16 or f32 regions and weights (one type), got "
+                            f"{reg.dtype} and {w.dtype}")
         if cell_mask.dtype != torch.bool:
             raise TypeError(f"up_conv kernel takes a bool cell mask, got {cell_mask.dtype}")
         if reg.dim() != 3 or reg.shape[1] != 27 or w.dim() != 3 or w.shape[0] != 27:
@@ -199,7 +208,7 @@ class UpConvKernel(CudaKernel):
         for name, t in (("reg", reg), ("w", w), ("cell_mask", cell_mask)):
             if not t.is_contiguous():
                 raise ValueError(f"up_conv kernel: {name} must be contiguous")
-        if reg.data_ptr() % 16 or cell_mask.data_ptr() % 16:
+        if (not f32 and reg.data_ptr() % 16) or cell_mask.data_ptr() % 16:
             raise ValueError("up_conv kernel: reg and cell_mask must be 16-byte aligned")
         lib = self._load()
         out = torch.empty((b, CELLS, cout), dtype=torch.float32, device=dev)
@@ -211,10 +220,19 @@ class UpConvKernel(CudaKernel):
                     table.ctypes.data, table.size, split.ctypes.data, split.size))
                 self._maps_on.add(dev.index)
             stream = torch.cuda.current_stream(dev).cuda_stream
-            wp = pack_weights(w)
-            rc = lib.up_conv_bf16(
-                reg.data_ptr(), wp.data_ptr(), cell_mask.data_ptr(), out.data_ptr(), b, cin, cout, stream,
-            )
+            if f32:
+                reg_hi, reg_lo = split_bf16x2(reg)
+                wp = torch.cat([pack_weights(t) for t in split_bf16x2(w)])  # w_hi's stages, then w_lo's
+                rc = lib.up_conv_f32(
+                    reg_hi.data_ptr(), reg_lo.data_ptr(), wp.data_ptr(), cell_mask.data_ptr(),
+                    out.data_ptr(), b, cin, cout, stream,
+                )
+            else:
+                wp = pack_weights(w)
+                rc = lib.up_conv_bf16(
+                    reg.data_ptr(), wp.data_ptr(), cell_mask.data_ptr(), out.data_ptr(), b, cin, cout,
+                    stream,
+                )
         self.check_rc("up_conv", rc)
         self.launches += 1
         return out
@@ -230,12 +248,15 @@ def up_conv(reg: torch.Tensor, w: torch.Tensor, cell_mask: torch.Tensor) -> torc
     return up_conv_kernel(reg, w, cell_mask)
 
 
-def up_work(up_tbl: torch.Tensor, cell_mask: torch.Tensor, cin: int, cout: int) -> tuple[int, int]:
-    """(operations, bytes) one bf16 call needs, given the (B, 27) table its
+def up_work(
+    up_tbl: torch.Tensor, cell_mask: torch.Tensor, cin: int, cout: int, elem_bytes: int = 2
+) -> tuple[int, int]:
+    """(operations, bytes) one call needs, given the (B, 27) table its
     region was gathered through: 2 * Cin * Cout for each occupied fine cell
     and each of its taps whose coarse cell exists (an absent cell's region
     row is zero); bytes for every region row such a tap reads (once), the
-    mask, the weights once, and the whole f32 output."""
+    mask, the weights once (region and weights at ``elem_bytes`` an
+    element: 2 for bf16, 4 for f32 operands), and the whole f32 output."""
     dev = up_tbl.device
     onehot = torch.zeros((CELLS, 27), dtype=torch.float32, device=dev)  # (cell, region row) taps
     for cells, _, ridx in UP_CLASSES:
@@ -246,5 +267,5 @@ def up_work(up_tbl: torch.Tensor, cell_mask: torch.Tensor, cin: int, cout: int) 
     ops = 2 * cin * cout * int((taps * exists).sum())
     rows_read = int(((taps > 0) & (up_tbl >= 0)).sum())
     b = up_tbl.shape[0]
-    nbytes = rows_read * cin * 2 + cell_mask.numel() + 27 * cin * cout * 2 + b * CELLS * cout * 4
+    nbytes = (rows_read * cin + 27 * cin * cout) * elem_bytes + cell_mask.numel() + b * CELLS * cout * 4
     return ops, nbytes

@@ -5,6 +5,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from roreg_tpu_torch.dist.collectives import active_group, all_reduce_sum
+
 __all__ = ["BatchNorm"]
 
 
@@ -21,7 +23,10 @@ class BatchNorm(nn.Module):
     computes them (``E[x^2] - E[x]^2``, clipped at 0), and update
     ``running = 0.9 * running + 0.1 * batch`` for both, with that biased
     variance. (``torch.nn.BatchNorm*`` updates ``running_var`` with the
-    unbiased variance, which flax does not.)
+    unbiased variance, which flax does not.) Inside a data-parallel step
+    (``dist.collectives.data_parallel``) the sums behind both statistics
+    are taken over every rank's rows, so that each rank normalises with the
+    whole batch's statistics, as one process on the whole batch does.
     """
 
     momentum = 0.9
@@ -40,8 +45,15 @@ class BatchNorm(nn.Module):
                 self.running_var + self.eps
             ) * self.weight + self.bias
         axes = tuple(range(x.dim() - 1))
-        mean = x.mean(axes)
-        var = ((x * x).mean(axes) - mean * mean).clamp_min(0.0)
+        group = active_group()
+        if group is None:
+            mean = x.mean(axes)
+            var = ((x * x).mean(axes) - mean * mean).clamp_min(0.0)
+        else:
+            count = x.new_full((x.shape[-1],), x.numel() // x.shape[-1])
+            s = all_reduce_sum(torch.stack([x.sum(axes), (x * x).sum(axes), count]), group)
+            mean = s[0] / s[2]
+            var = (s[1] / s[2] - mean * mean).clamp_min(0.0)
         with torch.no_grad():
             self.running_mean.mul_(self.momentum).add_((1 - self.momentum) * mean)
             self.running_var.mul_(self.momentum).add_((1 - self.momentum) * var)

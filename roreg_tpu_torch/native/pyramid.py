@@ -26,7 +26,7 @@ from roreg_tpu_torch.sparse.kernel_map import (
 )
 from roreg_tpu_torch.sparse.voxelize import SENTINEL, VoxelGrid
 
-__all__ = ["alloc_pyramid_buffers", "tree_slice", "fill_pyramid_host", "pyramid_leaves"]
+__all__ = ["alloc_pyramid_buffers", "tree_slice", "fill_pyramid_host", "pyramid_leaves", "host_to_voxel"]
 
 
 def alloc_pyramid_buffers(
@@ -174,3 +174,17 @@ def fill_pyramid_host(
     out.grid.rep_point[:n0] = pts[rep[:n0]]
     out.grid.num_voxels[...] = n0
     out.grid.origin[:] = origin
+
+
+def host_to_voxel(points: np.ndarray, voxel_size: float, capacity: int) -> np.ndarray:
+    """Each point's level-0 row in the pyramid ``fill_pyramid_host`` builds
+    from ``points`` (rows in packed-key order, cut at ``capacity``): (N,)
+    int32, -1 past the capacity; the ``to_voxel`` that batched buffers do
+    not keep."""
+    to_voxel, _, coords = voxelize_host(np.ascontiguousarray(points, np.float32), voxel_size)
+    if not len(coords):
+        return np.full(len(to_voxel), -1, np.int32)
+    order = np.argsort(_packed_keys(coords - coords.min(axis=0)))
+    row = np.empty(len(order), np.int64)
+    row[order] = np.arange(len(order))
+    return np.where(row < capacity, row, -1).astype(np.int32)[to_voxel]

@@ -1,16 +1,16 @@
 """Single typed config tree for the inference pipeline.
 
 A copy of ``roreg_tpu/pipeline/config.py``'s ``PipelineConfig``: same
-fields, same defaults (the paper's 3DMatch evaluation settings). The port
-implements a slice of it; :func:`check_supported` names the ROADMAP item of
-every option that is not ported yet.
+fields, same defaults (the paper's 3DMatch evaluation settings).
+:func:`check_supported` refuses the values and combinations the reference
+cannot run either.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
 
-__all__ = ["PipelineConfig", "check_supported", "check_device_supported", "rm_row_block"]
+__all__ = ["PipelineConfig", "check_supported", "rm_row_block"]
 
 
 @dataclass(frozen=True)
@@ -38,7 +38,8 @@ class PipelineConfig:
     # compatibility and ignored: the Hopper kernel gathers rows directly and
     # has no locality bound.
     conv_window: int | None = None
-    # build coordinate pyramids on host (native C++)
+    # build coordinate pyramids on host (native C++); False builds the
+    # gather engine's pyramids on the device (the block engine ignores it)
     host_maps: bool = True
 
     # keypoints
@@ -75,14 +76,10 @@ class PipelineConfig:
 
 
 def check_supported(cfg: PipelineConfig) -> None:
-    """Raise ``NotImplementedError`` for options this slice has not ported."""
+    """Raise ``ValueError`` for unknown values and for the combinations the
+    reference cannot run either."""
     if cfg.engine not in ("block", "gather"):
         raise ValueError(f"unknown engine {cfg.engine!r}")
-    if not cfg.host_maps:
-        raise NotImplementedError(
-            "host_maps=False (device-built pyramids) is not ported: "
-            "ROADMAP.md queue A, item A9; use host_maps=True"
-        )
     if cfg.estimator not in ("yohoo", "yohoc"):
         raise ValueError(f"unknown estimator {cfg.estimator!r}")
     from roreg_tpu_torch.sparse.resunet import RESUNET_VARIANTS, SIMPLENET_VARIANTS
@@ -100,18 +97,6 @@ def check_supported(cfg: PipelineConfig) -> None:
     if cfg.engine == "gather" and variant in SIMPLENET_VARIANTS:
         raise ValueError(f"backbone {variant!r}: the host-map gather describe runs the ResUNets "
                          "only (as in the reference); a SimpleNet runs through make_backbone")
-
-
-def check_device_supported(cfg: PipelineConfig, device) -> None:
-    """Raise ``NotImplementedError`` for options the card's kernels do not
-    take: the conv kernels multiply bf16 operands only, so
-    ``backbone_compute_dtype=None`` (f32 convs) runs on the CPU alone."""
-    if getattr(device, "type", device) == "cuda" and cfg.backbone_compute_dtype is None:
-        raise NotImplementedError(
-            "backbone_compute_dtype=None (f32 conv operands) is not ported to the GPU: "
-            "ROADMAP.md queue A, item A11 (f32 operands for the conv kernels); "
-            "use 'bfloat16', or device='cpu'"
-        )
 
 
 def rm_row_block(cfg: PipelineConfig) -> int | None:

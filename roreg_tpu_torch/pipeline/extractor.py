@@ -17,7 +17,15 @@ payload in pinned memory, copied to the device in one upload per cloud,
 and each chunk runs as ONE batched BlockResUNet forward; keypoints read the
 feature of their host-resolved level-0 cell row.
 
-The output is ``(K, G, 32)`` either way.
+Device-built pyramids (``engine="gather"``, ``host_maps=False``):
+counterpart of ``extract_group_features``. Each chunk's rotations of the
+cloud are made on the device and their pyramids built there
+(``sparse/kernel_map.build_pyramid``); the chunk then runs the same
+batched forward as the host-map path. :func:`extract` dispatches between
+the three as the reference's ``extract`` does (the block engine always
+builds host payloads).
+
+The output is ``(K, G, 32)`` in every case.
 """
 
 from __future__ import annotations
@@ -45,7 +53,7 @@ from roreg_tpu_torch.sparse.block import (
     flatten_block_batch,
     unpack_block_payload,
 )
-from roreg_tpu_torch.sparse.kernel_map import SparsePyramid
+from roreg_tpu_torch.sparse.kernel_map import SparsePyramid, build_pyramid
 from roreg_tpu_torch.sparse.resunet import (
     SIMPLENET_VARIANTS,
     ResUNet,
@@ -58,6 +66,9 @@ __all__ = [
     "make_backbone",
     "effective_chunk",
     "PinnedArena",
+    "extract",
+    "extract_group_features",
+    "device_chunk",
     "extract_group_features_hostmaps",
     "upload_chunk",
     "upload_pyramid",
@@ -228,6 +239,83 @@ def extract_group_features_hostmaps(
         timings["host_wait"] = timings.get("host_wait", 0.0) + waited
     out = torch.cat(outs, 0)  # (G, K, 32)
     return out.permute(1, 0, 2).contiguous()
+
+
+# ---- device-built pyramids ----
+
+
+def device_chunk(points: torch.Tensor, point_mask: torch.Tensor, keypoints: torch.Tensor,
+                 rots: torch.Tensor, cfg: PipelineConfig):
+    """One chunk's rotations (B, 3, 3) of a cloud on its device: each
+    rotation's cloud ``points @ R.T`` (f32, as the reference rotates) and
+    its pyramid built there, stacked as one batched DevicePyramid. ->
+    (batched DevicePyramid, rep points (B, C0, 3), rotated keypoints (B, K,
+    3))."""
+    pyrs = [build_pyramid(points @ R.T, point_mask, cfg.voxel_size, cfg.capacities,
+                          conv1_kernel_size=cfg.conv1_kernel_size) for R in rots]
+    stack = lambda leaves: torch.stack(list(leaves))  # noqa: E731
+    pyr = flatten_batch(
+        [stack(p.levels[l].mask for p in pyrs) for l in range(len(cfg.capacities))],
+        stack(p.conv1_occ for p in pyrs),
+        [stack(t) for t in zip(*(p.same for p in pyrs))],
+        [stack(t) for t in zip(*(p.down for p in pyrs))],
+        [stack(t) for t in zip(*(p.up for p in pyrs))],
+    )
+    return pyr, stack(p.grid.rep_point for p in pyrs), keypoints @ rots.transpose(1, 2)
+
+
+def _tensor(x, device: torch.device, dtype: torch.dtype) -> torch.Tensor:
+    return (x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x))).to(device=device, dtype=dtype)
+
+
+def extract_group_features(
+    backbone: ResUNet,
+    points,
+    point_mask,
+    keypoints,
+    cfg: PipelineConfig,
+    device: torch.device,
+) -> torch.Tensor:
+    """(N, 3) cloud (``point_mask`` (N,) bool, or None for all points) and
+    (K, 3) keypoints -> (K, G, 32) backbone group features, with every
+    pyramid built on ``device``: for each chunk of ``group_chunk``
+    rotations, the rotated clouds' pyramids (:func:`device_chunk`), one
+    batched forward, and each rotated keypoint's feature at its nearest
+    voxel representative point (ties to the lower index)."""
+    pts, kps = (_tensor(x, device, torch.float32) for x in (points, keypoints))
+    mask = (torch.ones(pts.shape[0], dtype=torch.bool, device=device) if point_mask is None
+            else _tensor(point_mask, device, torch.bool))
+    g = cfg.group_size
+    rots = torch.as_tensor(get_group(g).rotations.astype(np.float32), device=device)
+    chunk = effective_chunk(g, cfg.group_chunk)
+    outs = []
+    for ci in range(g // chunk):
+        pyr, rep, keys = device_chunk(pts, mask, kps, rots[ci * chunk:(ci + 1) * chunk], cfg)
+        outs.append(backbone_chunk(backbone, pyr, rep, keys))
+    return torch.cat(outs, 0).permute(1, 0, 2).contiguous()  # (K, G, 32)
+
+
+def extract(backbone, points, point_mask, keypoints, cfg: PipelineConfig, device: torch.device,
+            timings: dict[str, float] | None = None, dropped: list | None = None) -> torch.Tensor:
+    """Dispatch as the reference's ``extract``: the block engine over host
+    payloads (whatever ``host_maps`` says; the cloud's dropped block count
+    is appended to ``dropped`` when one is given), the gather engine over
+    host pyramids, or, with ``host_maps=False``, over device-built ones.
+    ``points``, ``point_mask`` and ``keypoints`` are host arrays or tensors.
+    -> (K, G, 32) on ``device``."""
+    if cfg.engine == "gather" and not cfg.host_maps:
+        return extract_group_features(backbone, points, point_mask, keypoints, cfg, device)
+    host = lambda x: x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)  # noqa: E731
+    pts = host(points)
+    if point_mask is not None:
+        pts = pts[host(point_mask).astype(bool)]
+    args = (backbone, pts, host(keypoints), cfg, device, timings)
+    if cfg.engine == "gather":
+        return extract_group_features_hostmaps(*args)
+    feats, n = extract_group_features_blocks(*args)
+    if dropped is not None:
+        dropped.append(n)
+    return feats
 
 
 # ---- block engine ----

@@ -43,11 +43,8 @@ from roreg_tpu_torch.models.gf import GroupFeatNetwork
 from roreg_tpu_torch.models.rd import RotationDetector
 from roreg_tpu_torch.models.rm import RotationCoherenceMatcher
 from roreg_tpu_torch.pipeline import estimator as est
-from roreg_tpu_torch.pipeline.config import PipelineConfig, check_device_supported, check_supported
-from roreg_tpu_torch.pipeline.extractor import (
-    extract_group_features_blocks,
-    extract_group_features_hostmaps,
-)
+from roreg_tpu_torch.pipeline.config import PipelineConfig, check_supported
+from roreg_tpu_torch.pipeline.extractor import extract
 from roreg_tpu_torch.pipeline.matcher import (
     mutual_match,
     nms_sample,
@@ -171,7 +168,6 @@ class RegistrationPipeline:
         check_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
-        check_device_supported(cfg, self.device)
         group = get_group(cfg.group_size)
         self.cayley = torch.as_tensor(group.cayley, dtype=torch.long, device=self.device)
         self.rotations = torch.as_tensor(group.rotations, dtype=torch.float32, device=self.device)
@@ -199,16 +195,8 @@ class RegistrationPipeline:
         """Cloud -> (K, G, 32) backbone group features. On the block engine
         the cloud's dropped block count is appended to ``dropped`` (a list)
         when one is given."""
-        pts = self._host(points)
-        if point_mask is not None:
-            pts = pts[self._host(point_mask).astype(bool)]
-        args = (self.nets["backbone"], pts, self._host(keypoints), self.cfg, self.device, timings)
-        if self.cfg.engine == "gather":
-            return extract_group_features_hostmaps(*args)
-        feats, n = extract_group_features_blocks(*args)
-        if dropped is not None:
-            dropped.append(n)
-        return feats
+        return extract(self.nets["backbone"], points, point_mask, keypoints, self.cfg, self.device,
+                       timings, dropped)
 
     @torch.inference_mode()
     def describe(self, points, point_mask, keypoints):

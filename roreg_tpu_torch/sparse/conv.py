@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from roreg_tpu_torch.dist.collectives import active_group, all_reduce_sum
 from roreg_tpu_torch.kernels.gather_conv import gather_conv
 from roreg_tpu_torch.layers import BatchNorm
 
@@ -40,17 +41,24 @@ def _zero_pad(y: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
 BN_MOMENTUM = 0.05
 
 
-def _masked_stats(x: torch.Tensor, mask: torch.Tensor, groups: int) -> tuple[torch.Tensor, torch.Tensor]:
+def _masked_stats(
+    x: torch.Tensor, mask: torch.Tensor, groups: int, process_group=None
+) -> tuple[torch.Tensor, torch.Tensor]:
     """Mean and biased variance per channel over the rows where ``mask``
     holds, for each of ``groups`` equal stacks of rows: (groups, 1, C)
     each (``denom = max(sum(mask), 1)``; the mean first, then the variance
-    in a second pass)."""
+    in a second pass). With ``process_group`` each sum is taken over every
+    rank's rows as well."""
     xg = x.reshape(groups, -1, x.shape[-1])
     w = mask.reshape(groups, -1, 1).to(x.dtype)
-    denom = w.sum(1, keepdim=True).clamp_min(1.0)
-    mean = (xg * w).sum(1, keepdim=True) / denom
-    var = (((xg - mean) ** 2) * w).sum(1, keepdim=True) / denom
-    return mean, var
+    if process_group is None:
+        denom = w.sum(1, keepdim=True).clamp_min(1.0)
+        mean = (xg * w).sum(1, keepdim=True) / denom
+        return mean, (((xg - mean) ** 2) * w).sum(1, keepdim=True) / denom
+    sums = all_reduce_sum(torch.cat([(xg * w).sum(1, keepdim=True), w.sum(1, keepdim=True)], -1), process_group)
+    denom = sums[..., -1:].clamp_min(1.0)
+    mean = sums[..., :-1] / denom
+    return mean, all_reduce_sum((((xg - mean) ** 2) * w).sum(1, keepdim=True), process_group) / denom
 
 
 def _affine(norm: nn.Module, x, mask, mean, var, groups: int) -> torch.Tensor:
@@ -67,12 +75,14 @@ class MaskedBatchNorm(BatchNorm):
     group, and the running statistics move by torch's convention, ``(1 - m)
     * old + m * batch`` with m = ``BN_MOMENTUM``, as the reference's
     ``MaskedBatchNorm``. (``layers.BatchNorm``, the heads' norm, keeps
-    flax's rule over every row.)"""
+    flax's rule over every row.) Inside a data-parallel step
+    (``dist.collectives.data_parallel``) the sums behind the statistics run
+    over every rank's rows."""
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor, groups: int = 1) -> torch.Tensor:
         if not self.training:
             return _affine(self, x, mask, self.running_mean, self.running_var, 1)
-        mean, var = _masked_stats(x, mask, 1)
+        mean, var = _masked_stats(x, mask, 1, active_group())
         with torch.no_grad():
             self.running_mean.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * mean.view(-1))
             self.running_var.mul_(1 - BN_MOMENTUM).add_(BN_MOMENTUM * var.view(-1))

@@ -2,13 +2,16 @@
 
 Counterparts of ``SparseLevel``, ``SparsePyramid``, ``hypercube_offsets``,
 ``hypercross_offsets``, ``kernel_offsets``, ``occupancy_words``,
-``lookup`` and ``neighbor_table`` in ``roreg_tpu/sparse/kernel_map.py``
-(and ``pack_keys`` of ``roreg_tpu/sparse/voxelize.py``). The port builds
-the UNet's maps on the host (``native/pyramid.py``); :func:`neighbor_table`
-builds a table for any kernel region (hypercube, hypercross or custom
-offsets) from a level with tensors, for convolutions beyond FCGF's. Level
-semantics are the reference's: level ``l`` holds coords that are
-multiples of ``2**l``.
+``lookup``, ``neighbor_table``, ``pack_occupancy`` and ``build_pyramid``
+in ``roreg_tpu/sparse/kernel_map.py`` (and ``pack_keys`` of
+``roreg_tpu/sparse/voxelize.py``). The UNet's maps are built on the host
+(``native/pyramid.py``, the production path) or, by
+:func:`build_pyramid`, on the device with tensors (``host_maps=False``):
+sorted keys and a binary search per (row, offset), the reference's
+construction. :func:`neighbor_table` builds a table for any kernel region
+(hypercube, hypercross or custom offsets) from a level with tensors, for
+convolutions beyond FCGF's. Level semantics are the reference's: level
+``l`` holds coords that are multiples of ``2**l``.
 """
 
 from __future__ import annotations
@@ -18,18 +21,28 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from roreg_tpu_torch.sparse.voxelize import AXIS_BITS, SENTINEL, VoxelGrid
+from roreg_tpu_torch.sparse.voxelize import (
+    AXIS_BITS,
+    SENTINEL,
+    VoxelGrid,
+    _first_of_runs,
+    pack_keys,
+    unpack_keys,
+    voxelize,
+)
 
 __all__ = [
     "hypercube_offsets",
     "hypercross_offsets",
     "kernel_offsets",
     "occupancy_words",
+    "pack_occupancy",
     "pack_keys",
     "lookup",
     "neighbor_table",
     "SparseLevel",
     "SparsePyramid",
+    "build_pyramid",
 ]
 
 
@@ -80,19 +93,22 @@ def kernel_offsets(
     raise ValueError(f"unknown region_type {region_type!r}")
 
 
-def pack_keys(coords: torch.Tensor) -> torch.Tensor:
-    """(..., 3) non-negative int32 voxel coords -> (...,) sortable int32
-    keys (x, y, z in 10 bits each, x most significant)."""
-    c = coords.to(torch.int32)
-    return (c[..., 0] << (2 * AXIS_BITS)) | (c[..., 1] << AXIS_BITS) | c[..., 2]
-
-
 def lookup(sorted_keys: torch.Tensor, query_keys: torch.Tensor) -> torch.Tensor:
     """The row of each query key in ``sorted_keys`` (binary search), -1
     where absent or where the query is ``SENTINEL``."""
     idx = torch.searchsorted(sorted_keys, query_keys).clamp(0, sorted_keys.shape[0] - 1)
     found = (sorted_keys[idx] == query_keys) & (query_keys != SENTINEL)
     return torch.where(found, idx, torch.full_like(idx, -1)).to(torch.int32)
+
+
+def _table(src_keys, dst_coords, dst_mask, offsets, step: int) -> torch.Tensor:
+    """(C_dst, K) int32 gather table: the src row of ``dst_coord + offset
+    * step``, -1 where absent or where the dst row is padding."""
+    off = torch.as_tensor(np.asarray(offsets, np.int32), device=dst_coords.device)
+    q = dst_coords.to(torch.int32)[:, None, :] + off[None] * step  # (C, K, 3)
+    ok = ((q >= 0) & (q < (1 << AXIS_BITS))).all(-1) & dst_mask.bool()[:, None]
+    qk = torch.where(ok, pack_keys(q), torch.full((), SENTINEL, dtype=torch.int32, device=q.device))
+    return lookup(src_keys.to(torch.int32).contiguous(), qk)
 
 
 def neighbor_table(level: "SparseLevel", offsets, step: int = 1) -> torch.Tensor:
@@ -102,11 +118,20 @@ def neighbor_table(level: "SparseLevel", offsets, step: int = 1) -> torch.Tensor
     table lies on the tensors' device. Feed it to ``kernels.gather_conv``."""
     keys, coords, mask = (torch.as_tensor(np.asarray(a)) if isinstance(a, np.ndarray) else a
                           for a in (level.keys, level.coords, level.mask))
-    off = torch.as_tensor(np.asarray(offsets, np.int32), device=coords.device)
-    q = coords.to(torch.int32)[:, None, :] + off[None] * step  # (C, K, 3)
-    ok = ((q >= 0) & (q < (1 << AXIS_BITS))).all(-1) & mask.bool()[:, None]
-    qk = torch.where(ok, pack_keys(q), torch.full((), SENTINEL, dtype=torch.int32, device=q.device))
-    return lookup(keys.to(torch.int32).contiguous(), qk)
+    return _table(keys, coords, mask, offsets, step)
+
+
+def pack_occupancy(occ: torch.Tensor) -> torch.Tensor:
+    """(M, K) bool occupancy -> (M, ceil(K/32)) packed words, bit j of word
+    w = offset 32*w + j: the reference's uint32 words carried as int32 bits
+    (bit 31 is the sign bit; read a bit by shift, then ``& 1``)."""
+    m, k = occ.shape
+    w = occupancy_words(k)
+    bits = torch.zeros((m, w * 32), dtype=torch.int64, device=occ.device)
+    bits[:, :k] = occ.to(torch.int64)
+    shifts = torch.arange(32, dtype=torch.int64, device=occ.device)
+    words = (bits.view(m, w, 32) << shifts).sum(-1)  # in [0, 2**32)
+    return (words - ((words >> 31) << 32)).to(torch.int32)  # the same 32 bits as int32
 
 
 class SparseLevel(NamedTuple):
@@ -123,6 +148,8 @@ class SparsePyramid(NamedTuple):
     ceil(K1/32)) packed uint32 occupancy of the first conv. same: per level
     (C_l, 27) same-level map. down: l -> l+1, (C_{l+1}, 27) rows of level l.
     up: l+1 -> l, (C_l, 27) rows of level l+1. grid: level-0 VoxelGrid.
+    Leaves are numpy arrays (the host builders) or tensors
+    (:func:`build_pyramid`).
     """
 
     levels: tuple
@@ -131,3 +158,54 @@ class SparsePyramid(NamedTuple):
     down: tuple
     up: tuple
     grid: VoxelGrid
+
+
+def _downsample(level: SparseLevel, stride: int, capacity: int) -> SparseLevel:
+    """Coords snapped to multiples of ``stride`` (ME's stride map),
+    deduplicated in key order, compacted into ``capacity`` rows."""
+    snapped = torch.div(level.coords, stride, rounding_mode="floor") * stride
+    sentinel = torch.tensor(SENTINEL, dtype=torch.int32, device=snapped.device)
+    sk = torch.sort(torch.where(level.mask, pack_keys(snapped), sentinel)).values
+    isfirst = _first_of_runs(sk)
+    uidx = (torch.cumsum(isfirst, 0) - 1).to(torch.int32)
+    num = isfirst.sum().to(torch.int32)
+    in_cap = isfirst & (uidx < capacity)
+    out = torch.full((capacity + 1,), SENTINEL, dtype=torch.int32, device=sk.device)
+    out[torch.where(in_cap, uidx, capacity).long()] = torch.where(in_cap, sk, sentinel)
+    out = out[:capacity]
+    return SparseLevel(keys=out, coords=unpack_keys(out), mask=out != SENTINEL,
+                       num=torch.clamp(num, max=capacity))
+
+
+def build_pyramid(
+    points: torch.Tensor,
+    point_mask: torch.Tensor,
+    voxel_size: float,
+    capacities: tuple[int, ...],
+    conv1_kernel_size: int = 7,
+    num_levels: int = 4,
+) -> SparsePyramid:
+    """Voxelize a cloud and build every kernel map of the FCGF UNet on the
+    points' device, as the reference's ``build_pyramid``: level ``l`` the
+    multiples of ``2**l`` of level ``l-1`` (``_downsample``), the first
+    conv's packed occupancy, ``same[l]`` (level l into level l at step
+    ``2**l``), ``down[l]`` (level l+1's coords into level l) and ``up[l]``
+    (level l's coords into level l+1), both at step ``2**l``. Every leaf
+    is a tensor; the tables are int32."""
+    if len(capacities) != num_levels:
+        raise ValueError(f"{num_levels} levels need {num_levels} capacities, got {capacities}")
+    grid = voxelize(points, point_mask, voxel_size, capacities[0])
+    levels = [SparseLevel(keys=grid.keys, coords=grid.coords, mask=grid.mask, num=grid.num_voxels)]
+    for l in range(1, num_levels):
+        levels.append(_downsample(levels[-1], 2**l, capacities[l]))
+    off3 = hypercube_offsets(3)
+    lvl0 = levels[0]
+    conv1_occ = pack_occupancy(
+        _table(lvl0.keys, lvl0.coords, lvl0.mask, hypercube_offsets(conv1_kernel_size), 1) >= 0)
+    same = tuple(_table(lv.keys, lv.coords, lv.mask, off3, 2**l) for l, lv in enumerate(levels))
+    down = tuple(_table(levels[l].keys, levels[l + 1].coords, levels[l + 1].mask, off3, 2**l)
+                 for l in range(num_levels - 1))
+    up = tuple(_table(levels[l + 1].keys, levels[l].coords, levels[l].mask, off3, 2**l)
+               for l in range(num_levels - 1))
+    return SparsePyramid(levels=tuple(levels), conv1_occ=conv1_occ, same=same, down=down, up=up,
+                         grid=grid)

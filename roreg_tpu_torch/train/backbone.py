@@ -26,7 +26,7 @@ from roreg_tpu_torch.data.synthetic import _random_rotation
 from roreg_tpu_torch.device import resolve_device
 from roreg_tpu_torch.native.lib import voxel_nn_host, voxelize_host
 from roreg_tpu_torch.native.pyramid import alloc_pyramid_buffers, fill_pyramid_host
-from roreg_tpu_torch.pipeline.config import PipelineConfig, check_device_supported
+from roreg_tpu_torch.pipeline.config import PipelineConfig
 from roreg_tpu_torch.pipeline.extractor import make_backbone, upload_pyramid
 from roreg_tpu_torch.train.trainer import TrainState
 from roreg_tpu_torch.weights import init_module_variables, load_variables
@@ -103,12 +103,11 @@ def make_backbone_train_step(cfg: PipelineConfig, lr: float = 1e-1, optimizer: s
       metrics are detached tensors (``loss`` and the four parts).
 
     ``optimizer``: "sgd" (FCGF's recipe) or "adam". Runs on CUDA unless
-    ``device="cpu"``; on the card the convs need ``backbone_compute_dtype``
-    bf16 (ROADMAP A11)."""
+    ``device="cpu"``, at ``cfg.backbone_compute_dtype`` (bf16, or f32 with
+    None) on either."""
     if optimizer not in _DECAY:
         raise ValueError(f"unknown optimizer {optimizer!r}")
     dev = resolve_device(device)
-    check_device_supported(cfg, dev)
 
     def init_fn(variables: dict | None = None, seed: int = 0) -> TrainState:
         net = make_backbone(cfg)

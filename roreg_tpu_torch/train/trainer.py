@@ -29,6 +29,7 @@ from torch import nn
 
 from roreg_tpu_torch.core.group import get_group
 from roreg_tpu_torch.device import resolve_device
+from roreg_tpu_torch.dist import multihost
 from roreg_tpu_torch.models.et import EquivariantTransformer
 from roreg_tpu_torch.models.gf import GroupFeatNetwork
 from roreg_tpu_torch.models.rd import RotationDetector
@@ -208,6 +209,7 @@ class Trainer:
         device=None,
     ):
         self.cfg = cfg
+        self.primary = multihost.is_primary()  # writes logs and checkpoints (the first of several processes)
         self.data_iter = data_iter
         self.val_fn = val_fn
         self.metric_key, self.greater = name2metric[cfg.component]
@@ -221,7 +223,8 @@ class Trainer:
         return os.path.join(self.cfg.model_dir, self.cfg.component.upper(), "model_best" if best else "model")
 
     def save(self, best: bool = False) -> None:
-        ckpt.save_train_state(self._ckpt_dir(best), self.cfg.component, self.state)
+        if self.primary:
+            ckpt.save_train_state(self._ckpt_dir(best), self.cfg.component, self.state)
 
     def restore(self, best: bool = False) -> bool:
         if self.state is None:
@@ -242,7 +245,8 @@ class Trainer:
             if (i + 1) % cfg.log_interval == 0:
                 last_metrics = {k: float(v) for k, v in metrics.items()}
                 self.history.append({"step": i + 1, **last_metrics})
-                self.scalar_log.write(i + 1, last_metrics, split="train")
+                if self.primary:
+                    self.scalar_log.write(i + 1, last_metrics, split="train")
             if self.val_fn is not None and (i + 1) % cfg.val_interval == 0:
                 val = self.val_fn(self.state, self.eval_fwd)
                 v = val[self.metric_key]
@@ -251,7 +255,8 @@ class Trainer:
                     self.save(best=True)
                 self.history.append({"step": i + 1, **{f"val_{k}": float(x) for k, x in val.items()
                                                        if np.ndim(x) == 0}})
-                self.scalar_log.write(i + 1, val, split="val")
+                if self.primary:
+                    self.scalar_log.write(i + 1, val, split="val")
             if (i + 1) % cfg.save_interval == 0:
                 self.save(best=False)
             if i + 1 < steps:

@@ -50,7 +50,7 @@ from roreg_tpu.pipeline.config import PipelineConfig as JaxConfig  # noqa: E402
 from roreg_tpu.train import backbone as JB  # noqa: E402
 from roreg_tpu_torch.data.synthetic import make_synthetic_scene  # noqa: E402
 from roreg_tpu_torch.kernels import gather_conv as GC  # noqa: E402
-from roreg_tpu_torch.pipeline.config import PipelineConfig, check_device_supported  # noqa: E402
+from roreg_tpu_torch.pipeline.config import PipelineConfig  # noqa: E402
 from roreg_tpu_torch.sparse.conv import MaskedBatchNorm  # noqa: E402
 from roreg_tpu_torch.train import backbone as B  # noqa: E402
 from roreg_tpu_torch.weights import _leaves, flatten_variables  # noqa: E402
@@ -451,22 +451,38 @@ def test_overfit_lowers_the_loss(batches):
 
 
 def test_f32_convs_are_refused_on_the_card(monkeypatch):
-    """``backbone_compute_dtype=None`` cannot run on the card (the conv
-    kernels take bf16 operands): a pipeline or a backbone train step on a
-    CUDA device raises, naming A11, before anything is launched; the CPU
-    takes it."""
-    from roreg_tpu_torch.pipeline.registration import RegistrationPipeline
-
+    """``backbone_compute_dtype=None`` runs on the card now (the name is
+    the old premise's): an f32 backbone step off the CPU sends f32
+    operands to the forward kernel's wrapper and to dgrad and wgrad, each
+    of which takes them as two bf16 terms (``kernels/split.py``; the
+    kernels are stubbed on the meta device here, and the ``cuda`` tests and
+    smoke phases 3e and 11c launch them), and the train step builds for
+    the card with that config."""
     cfg = PipelineConfig(**SMALL, backbone_compute_dtype=None, engine="gather", group_size=12)
-    with pytest.raises(NotImplementedError, match="A11"):
-        check_device_supported(cfg, torch.device("cuda"))
-    check_device_supported(cfg, torch.device("cpu"))
-    check_device_supported(dataclasses.replace(cfg, backbone_compute_dtype="bfloat16"), torch.device("cuda"))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    with pytest.raises(NotImplementedError, match="A11"):
-        RegistrationPipeline(cfg, {}, device="cuda")
-    with pytest.raises(NotImplementedError, match="A11"):
-        B.make_backbone_train_step(cfg, device="cuda")
+    monkeypatch.setattr(B, "resolve_device", lambda d=None: torch.device("meta"))
+    init_fn, step_fn = B.make_backbone_train_step(cfg, device="cuda")
+    state = init_fn(seed=0)
+    assert all(p.device.type == "meta" and p.dtype == torch.float32 for p in state.net.parameters())
+    seen = []
+
+    def stub(name, shape_of):
+        def run(*a):
+            seen.append((name, a[0].dtype, a[2].dtype))
+            return torch.empty(shape_of(*a), device="meta")
+        return run
+
+    monkeypatch.setattr(GC, "gather_conv_kernel", stub("fwd", lambda f, n, w: (n.shape[0], w.shape[2])))
+    monkeypatch.setattr(GC, "gather_conv_dgrad_kernel", stub("dgrad", lambda f, n, w, d: f.shape))
+    monkeypatch.setattr(GC, "gather_conv_wgrad_kernel", stub("wgrad", lambda f, n, w, d: w.shape))
+    conv = state.net.conv2
+    x = torch.empty((50, conv.kernel.shape[1]), device="meta", requires_grad=True)
+    out = conv(x, torch.empty((40, 27), dtype=torch.int32, device="meta"),
+               torch.ones(40, dtype=torch.bool, device="meta"))
+    out.sum().backward()
+    f32 = torch.float32
+    assert seen == [("fwd", f32, f32), ("dgrad", f32, f32), ("wgrad", f32, f32)]
+    assert conv.kernel.grad.dtype == f32 and x.grad.dtype == f32
 
 
 def test_backbones_without_batch_statistics_are_refused_as_in_jax(batches):

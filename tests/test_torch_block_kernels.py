@@ -262,3 +262,81 @@ def test_kernels_raise_on_out_of_range_entries_on_gpu(cuda_device, kernel):
     )
     assert run.returncode != 0
     assert "CUDA error" in run.stderr
+
+
+# f32 operands: the kernels run two bf16 terms of each operand (three
+# products, about 3 * 2^-18 of each product lost), held to 1e-4 of the
+# output's largest magnitude against the f32 plain version with TF32 off
+F32_RTOL = 1e-4
+
+
+@pytest.fixture
+def exact_f32(cuda_device):
+    """TF32 off for cuBLAS and cuDNN while a test runs, so that the f32
+    plain versions are f32 on the card."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield cuda_device
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def _f32_err(out: torch.Tensor, ref: torch.Tensor) -> float:
+    return float((out - ref).abs().max() / ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("span,stride", [(6, 1), (9, 2)])
+@pytest.mark.parametrize("cin,cout", [(32, 64), (64, 128), (256, 256)])
+def test_halo_conv_kernel_f32_on_gpu(exact_f32, span, stride, cin, cout):
+    """f32 features and weights: one launch over the stacked split operands
+    at 3 Cin, within ``F32_RTOL`` of the f32 plain version; masked cells 0."""
+    dev = exact_f32
+    rng = np.random.default_rng(cin + cout + span + 1)
+    nsrc, b = 700, 613
+    tbl, mask = _blocks(rng, b, nsrc)
+    tbl = torch.from_numpy(tbl).to(dev)
+    mask = torch.from_numpy(mask).to(dev)
+    feats = torch.randn(nsrc, 64, cin, device=dev)
+    w = torch.randn(27, cin, cout, device=dev) * (2 / (27 * cin)) ** 0.5
+    before = halo_conv_kernel.launches
+    out = halo_conv(feats, tbl, w, mask, span, stride)
+    assert halo_conv_kernel.launches == before + 1
+    torch.cuda.synchronize()
+    ref = halo_conv_plain(feats, tbl, w, mask, span, stride)
+    assert _f32_err(out, ref) <= F32_RTOL
+    # one bf16 rounding of the operands misses by far more
+    assert _f32_err(halo_conv_plain(feats.bfloat16(), tbl, w.bfloat16(), mask, span, stride), ref) > 10 * F32_RTOL
+    assert bool((out[~mask] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("blocks,cin,cout", [(203, 256, 128), (405, 256, 64), (1213, 128, 64), (99, 32, 32)])
+def test_up_conv_kernel_f32_on_gpu(exact_f32, blocks, cin, cout):
+    """The kernel's f32 entry (a loop over the terms: the hi region against
+    both weight terms, then the lo region restaged against w_hi), at the
+    decoder's widths up to Cin 256, with absent region cells, padding
+    blocks, runs of dead blocks and a ragged last thread block: one launch,
+    within ``F32_RTOL`` of the f32 plain version; masked cells 0."""
+    from roreg_tpu_torch.kernels.up_conv import up_conv, up_conv_kernel, up_conv_plain
+
+    dev = exact_f32
+    rng = np.random.default_rng(blocks + cin)
+    nsrc = 900
+    tbl = rng.integers(0, nsrc, size=(blocks, 27))
+    tbl[rng.random((blocks, 27)) < 0.3] = -1
+    mask = rng.random((blocks, 64)) < 0.4
+    mask[40:70] = False  # a run of dead blocks
+    mask[5] = False
+    tbl = torch.from_numpy(tbl.astype(np.int32)).to(dev)
+    mask = torch.from_numpy(mask).to(dev)
+    reg = block_gather(torch.randn(nsrc, cin, device=dev), tbl)  # the main path's f32 region
+    w = torch.randn(27, cin, cout, device=dev) * (2 / (8 * cin)) ** 0.5
+    before = up_conv_kernel.launches
+    out = up_conv(reg, w, mask)
+    assert up_conv_kernel.launches == before + 1
+    torch.cuda.synchronize()
+    ref = up_conv_plain(reg, w, mask)
+    assert out.dtype == torch.float32 and out.shape == (blocks, 64, cout)
+    assert _f32_err(out, ref) <= F32_RTOL
+    assert _f32_err(up_conv_plain(reg.bfloat16(), w.bfloat16(), mask), ref) > 10 * F32_RTOL
+    assert bool((out[~mask] == 0).all())

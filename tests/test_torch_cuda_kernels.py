@@ -749,3 +749,77 @@ def test_gather_conv_bwd_kernels_raise_on_out_of_range_entries_on_gpu(cuda_devic
     )
     assert run.returncode != 0
     assert "CUDA error" in run.stderr
+
+
+# f32 operands: two bf16 terms of each operand on the tensor cores (three
+# products, about 3 * 2^-18 of each product lost), held to 1e-4 of the
+# output's largest magnitude against the f32 plain version with TF32 off
+F32_RTOL = 1e-4
+
+
+@pytest.fixture
+def exact_f32(cuda_device):
+    """TF32 off for cuBLAS and cuDNN while a test runs, so that the f32
+    plain versions are f32 on the card."""
+    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield cuda_device
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def _f32_err(out: torch.Tensor, ref: torch.Tensor) -> float:
+    return float((out - ref).abs().max() / ref.abs().max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,kvol,launches", [(32, 32, 27, 1), (256, 256, 27, 1), (64, 64, 40, 2)])
+def test_gather_conv_kernel_f32_on_gpu(exact_f32, cin, cout, kvol, launches):
+    """f32 features and weights, narrow, wide and with more offsets than one
+    launch takes: one launch per 32 offsets over the stacked split operands
+    at 3 Cin, within ``F32_RTOL`` of the f32 plain version, bit-equal twice."""
+    dev = exact_f32
+    rng = np.random.default_rng(cin + cout + kvol)
+    n, m = 2500, 64 * 9 + 37
+    nbr = torch.from_numpy(_gather_table(rng, m, n, kvol)).to(dev)
+    feats = torch.from_numpy(rng.normal(size=(n, cin)).astype(np.float32)).to(dev)
+    w = torch.randn(kvol, cin, cout, device=dev) * (2 / (kvol * cin)) ** 0.5
+    before = gather_conv_kernel.launches
+    out = gather_conv(feats, nbr, w)
+    assert gather_conv_kernel.launches == before + launches
+    again = gather_conv(feats, nbr, w)
+    torch.cuda.synchronize()
+    ref = gather_conv_plain(feats, nbr, w)
+    assert out.dtype == torch.float32 and out.shape == (m, cout)
+    assert _f32_err(out, ref) <= F32_RTOL
+    assert _f32_err(gather_conv_plain(feats.bfloat16(), nbr, w.bfloat16()), ref) > 10 * F32_RTOL
+    assert torch.equal(out, again)
+    assert not bool(out[64:192].any())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cin,cout,kvol", [(32, 32, 27), (256, 256, 27), (48, 24, 7)])
+def test_gather_conv_bwd_kernels_f32_on_gpu(exact_f32, cin, cout, kvol):
+    """dgrad and wgrad with f32 operands: each launches once per bf16 term
+    of the operand it reads as bf16 (W for dgrad, X for wgrad), and the
+    summed results are within ``F32_RTOL`` of the f32 plain versions."""
+    from roreg_tpu_torch.kernels.gather_conv import (
+        gather_conv_dgrad, gather_conv_dgrad_kernel, gather_conv_dgrad_plain,
+        gather_conv_wgrad, gather_conv_wgrad_kernel, gather_conv_wgrad_plain,
+    )
+
+    dev = exact_f32
+    rng = np.random.default_rng(cin + cout + kvol + 1)
+    n, m = 2500, 64 * 9 + 37
+    nbr = torch.from_numpy(_gather_table(rng, m, n, kvol)).to(dev)
+    feats = torch.from_numpy(rng.normal(size=(n, cin)).astype(np.float32)).to(dev)
+    w = torch.randn(kvol, cin, cout, device=dev) * (2 / (kvol * cin)) ** 0.5
+    dy = torch.randn(m, cout, device=dev)
+    dy[-100:] = 0.0
+    before = (gather_conv_dgrad_kernel.launches, gather_conv_wgrad_kernel.launches)
+    dx = gather_conv_dgrad(feats, nbr, w, dy)
+    dw = gather_conv_wgrad(feats, nbr, w, dy)
+    assert (gather_conv_dgrad_kernel.launches, gather_conv_wgrad_kernel.launches) == (before[0] + 2, before[1] + 2)
+    torch.cuda.synchronize()
+    assert dx.shape == feats.shape and dw.shape == w.shape
+    assert _f32_err(dx, gather_conv_dgrad_plain(feats, nbr, w, dy)) <= F32_RTOL
+    assert _f32_err(dw, gather_conv_wgrad_plain(feats, nbr, w, dy)) <= F32_RTOL

@@ -1,0 +1,203 @@
+"""f32 conv operands on the card (``backbone_compute_dtype=None``): the
+two-term bf16 split's CPU model against the JAX package's f32 convs and
+gradients, and the wrappers' routing of f32 operands to the kernels.
+
+The kernels multiply bf16 on the tensor cores with f32 sums. An f32
+operand runs as ``hi + lo`` (``kernels/split.py``): ``gather_conv`` and
+``halo_conv`` contract the stacked operands ``[Xh | Xh | Xl]`` and ``[Wh ;
+Wl ; Wh]`` at 3 Cin in one launch; ``up_conv``'s f32 entry loops over the
+terms (the hi region against Wh and Wl, then the lo region against Wh);
+dgrad and wgrad run once per term of W or X. Here each of those is
+modelled with the plain versions on the bf16 terms (exact products, f32
+sums), at the magnitudes of the card smoke's phase 3b (features of unit
+variance, He-scaled weights), and held to ``F32_RTOL`` of the output's
+largest magnitude against the JAX package at f32; one bf16 rounding of
+the operands misses that by far.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+torch.set_num_threads(1)
+
+import roreg_tpu.sparse.block as jblock  # noqa: E402
+from roreg_tpu.native.blockpyr import build_block_pyramid_host  # noqa: E402
+from roreg_tpu.sparse.conv import gather_conv as jax_gather_conv  # noqa: E402
+from roreg_tpu_torch.kernels import gather_conv as GC  # noqa: E402
+from roreg_tpu_torch.kernels.block_gather import block_gather_plain  # noqa: E402
+from roreg_tpu_torch.kernels.halo_conv import halo_conv_plain  # noqa: E402
+from roreg_tpu_torch.kernels.split import split_bf16x2, stack_terms  # noqa: E402
+from roreg_tpu_torch.kernels.up_conv import up_conv_plain  # noqa: E402
+
+# the kernels' f32 tolerance: 1e-4 of the output's largest magnitude (the
+# split leaves about 3 * 2^-18 of each product)
+F32_RTOL = 1e-4
+VS = 0.05
+BCAPS = (256, 128, 64, 32)
+
+
+def _rel(out, ref) -> float:
+    out, ref = np.asarray(out, np.float64), np.asarray(ref, np.float64)
+    return float(np.abs(out - ref).max() / np.abs(ref).max())
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def _he(rng, k, cin, cout, fan):
+    return (rng.normal(size=(k, cin, cout)) * (2.0 / (fan * cin)) ** 0.5).astype(np.float32)
+
+
+def test_split_leaves_two_to_the_minus_17():
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=10000).astype(np.float32)) * 37.0
+    hi, lo = split_bf16x2(x)
+    assert hi.dtype == lo.dtype == torch.bfloat16
+    assert float(((hi.float() + lo.float()) - x).abs().max() / x.abs().max()) <= 2.0**-17
+    xs, ws = stack_terms(torch.ones(5, 32), torch.ones(27, 32, 64))
+    assert xs.shape == (5, 96) and ws.shape == (27, 96, 64) and xs.dtype == ws.dtype == torch.bfloat16
+
+
+def _gather_inputs(rng, n, m, k, cin, cout):
+    nbr = rng.integers(0, n, size=(m, k))
+    nbr[rng.random((m, k)) < 0.4] = -1
+    feats = rng.normal(size=(n, cin)).astype(np.float32)
+    return feats, nbr.astype(np.int32), _he(rng, k, cin, cout, k)
+
+
+@pytest.mark.parametrize("cin,cout", [(32, 64), (256, 128)])
+def test_stacked_gather_conv_model_matches_jax_f32(cin, cout):
+    """The stacked contraction ``[Xh|Xh|Xl] @ [Wh;Wl;Wh]`` (what the
+    kernel computes at 3 Cin) against the JAX package's f32 gather conv."""
+    rng = np.random.default_rng(cin)
+    feats, nbr, w = _gather_inputs(rng, 900, 700, 27, cin, cout)
+    ref = np.asarray(jax_gather_conv(jnp.asarray(feats), jnp.asarray(nbr), jnp.asarray(w)))
+    xs, ws = stack_terms(_t(feats), _t(w))
+    model = GC.gather_conv_plain(xs, _t(nbr), ws)
+    assert _rel(model.numpy(), ref) <= F32_RTOL
+    one_term = GC.gather_conv_plain(_t(feats).bfloat16(), _t(nbr), _t(w).bfloat16())
+    assert _rel(one_term.numpy(), ref) > 10 * F32_RTOL
+
+
+@pytest.fixture(scope="module")
+def pyr():
+    rng = np.random.default_rng(0)
+    xy = rng.uniform(0, 1.6, size=(1500, 2))
+    z = 0.25 * np.sin(xy[:, 0] * 5) * np.cos(xy[:, 1] * 4) + 0.02 * rng.normal(size=1500)
+    p = build_block_pyramid_host(np.column_stack([xy, z]).astype(np.float32), VS, BCAPS)
+    occ = [np.asarray(jblock.unpack_cell_occupancy(jnp.asarray(l.occ_words))) for l in p.levels]
+    return p, occ
+
+
+@pytest.mark.parametrize("kind,level,cin,cout", [("same", 0, 32, 32), ("same", 2, 128, 128),
+                                                 ("down", 0, 32, 64), ("down", 2, 128, 256)])
+def test_stacked_halo_conv_model_matches_jax_f32(pyr, kind, level, cin, cout):
+    """halo_conv's stacked contraction at 3 Cin against JAX ``conv_same`` /
+    ``conv_down`` at f32."""
+    p, occ = pyr
+    rng = np.random.default_rng(level + cin)
+    if kind == "same":
+        tbl, mask, fn, span, stride = p.levels[level].same_tbl, occ[level], jblock.conv_same, 6, 1
+    else:
+        tbl, mask, fn, span, stride = p.down_tbl[level], occ[level + 1], jblock.conv_down, 9, 2
+    feats = (rng.normal(size=(len(occ[level]), 64, cin)) * occ[level][..., None]).astype(np.float32)
+    w = _he(rng, 27, cin, cout, 27)
+    ref = np.asarray(fn(jnp.asarray(feats), jnp.asarray(tbl), jnp.asarray(w), jnp.asarray(mask)))
+    xs, ws = stack_terms(_t(feats), _t(w))
+    model = halo_conv_plain(xs, _t(tbl), ws, _t(mask), span, stride)
+    assert _rel(model.numpy(), ref) <= F32_RTOL
+    one_term = halo_conv_plain(_t(feats).bfloat16(), _t(tbl), _t(w).bfloat16(), _t(mask), span, stride)
+    assert _rel(one_term.numpy(), ref) > 10 * F32_RTOL
+
+
+@pytest.mark.parametrize("level,cin,cout", [(0, 128, 64), (1, 256, 64), (2, 256, 128)])
+def test_term_loop_up_conv_model_matches_jax_f32(pyr, level, cin, cout):
+    """up_conv's f32 entry as a loop over the terms, in the kernel's order:
+    the hi region against Wh and Wl into the accumulators, then the lo
+    region against Wh added on; against JAX ``conv_up`` at f32, at the
+    decoder's widths (Cin 256 included)."""
+    p, occ = pyr
+    rng = np.random.default_rng(level + 20)
+    fc = (rng.normal(size=(len(occ[level + 1]), 64, cin)) * occ[level + 1][..., None]).astype(np.float32)
+    w = _he(rng, 27, cin, cout, 8)
+    tbl, mask = p.up_tbl[level], occ[level]
+    ref = np.asarray(jblock.conv_up(jnp.asarray(fc), jnp.asarray(tbl), jnp.asarray(w), jnp.asarray(mask)))
+    reg = block_gather_plain(_t(fc).reshape(-1, cin), _t(tbl))
+    (rh, rl), (wh, wl) = split_bf16x2(reg), split_bf16x2(_t(w))
+    m = _t(mask)
+    model = up_conv_plain(rh, wh, m) + up_conv_plain(rh, wl, m)  # first pass
+    model = model + up_conv_plain(rl, wh, m)  # second pass, from the stored sums
+    assert _rel(model.numpy(), ref) <= F32_RTOL
+    assert _rel(up_conv_plain(reg.bfloat16(), _t(w).bfloat16(), m).numpy(), ref) > 10 * F32_RTOL
+
+
+@pytest.mark.parametrize("cin,cout", [(32, 32), (128, 256)])
+def test_bwd_term_models_match_jax_f32_gradients(cin, cout):
+    """dgrad over Wh and Wl, wgrad over Xh and Xl (dY kept to 2^-24 by the
+    kernels' three-term split, modelled here as f32), each pair summed,
+    against JAX's f32 gradients of its gather conv."""
+    rng = np.random.default_rng(cin + 1)
+    feats, nbr, w = _gather_inputs(rng, 900, 700, 27, cin, cout)
+    dy = rng.normal(size=(700, cout)).astype(np.float32)
+
+    def loss(x, wt):
+        return jnp.sum(jax_gather_conv(x, jnp.asarray(nbr), wt) * jnp.asarray(dy))
+
+    rdx, rdw = (np.asarray(g) for g in jax.grad(loss, argnums=(0, 1))(jnp.asarray(feats), jnp.asarray(w)))
+    x, wt, tb, d = _t(feats), _t(w), _t(nbr), _t(dy)
+    dx = sum(GC.gather_conv_dgrad_plain(x, tb, term.float(), d) for term in split_bf16x2(wt))
+    dw = sum(GC.gather_conv_wgrad_plain(term.float(), tb, wt, d) for term in split_bf16x2(x))
+    assert _rel(dx.numpy(), rdx) <= F32_RTOL and _rel(dw.numpy(), rdw) <= F32_RTOL
+    assert _rel(GC.gather_conv_dgrad_plain(x, tb, wt.bfloat16().float(), d).numpy(), rdx) > 10 * F32_RTOL
+    assert _rel(GC.gather_conv_wgrad_plain(x.bfloat16().float(), tb, wt, d).numpy(), rdw) > 10 * F32_RTOL
+
+
+def _meta(*shape, dtype=torch.float32, grad=False):
+    return torch.empty(shape, dtype=dtype, device="meta", requires_grad=grad)
+
+
+def test_wrappers_route_f32_to_the_kernels(monkeypatch):
+    """Off the CPU, f32 operands reach each kernel's wrapper as f32 (its f32
+    entry), never a plain version or a bf16 cast: the gather conv with its
+    gradient, the block engine's same, down and up convs, and the f32 skip
+    concatenation is ``torch.cat`` (the kernels are stubbed on the meta
+    device; the ``cuda`` tests launch them)."""
+    import roreg_tpu_torch.kernels.block_gather as KB
+    import roreg_tpu_torch.kernels.halo_conv as KH
+    import roreg_tpu_torch.kernels.skip_concat as KS
+    import roreg_tpu_torch.kernels.up_conv as KU
+    from roreg_tpu_torch.sparse import block as tblock
+
+    calls = []
+
+    def stub(name, shape_of):
+        def run(*a):
+            calls.append((name, tuple(t.dtype for t in a if isinstance(t, torch.Tensor) and t.is_floating_point())))
+            return torch.empty(shape_of(*a), device="meta")
+        return run
+
+    monkeypatch.setattr(GC, "gather_conv_kernel", stub("fwd", lambda f, n, w: (n.shape[0], w.shape[2])))
+    monkeypatch.setattr(GC, "gather_conv_dgrad_kernel", stub("dgrad", lambda f, n, w, d: f.shape))
+    monkeypatch.setattr(GC, "gather_conv_wgrad_kernel", stub("wgrad", lambda f, n, w, d: w.shape))
+    monkeypatch.setattr(KH, "halo_conv_kernel", stub("halo", lambda f, t, w, m, s, st: (t.shape[0], 64, w.shape[2])))
+    monkeypatch.setattr(KB, "block_gather_kernel", stub("block_gather", lambda s, t: (t.shape[0], 27, s.shape[1])))
+    monkeypatch.setattr(KU, "up_conv_kernel", stub("up", lambda r, w, m: (r.shape[0], 64, w.shape[2])))
+    monkeypatch.setattr(KS, "skip_concat_kernel", lambda *a: pytest.fail("skip_concat at f32"))
+    for name in ("gather_conv_plain", "gather_conv_dgrad_plain", "gather_conv_wgrad_plain"):
+        monkeypatch.setattr(GC, name, lambda *a: pytest.fail("a plain version off the CPU"))
+
+    f32 = (torch.float32, torch.float32)
+    out = GC.gather_conv(_meta(50, 64, grad=True), _meta(40, 27, dtype=torch.int32), _meta(27, 64, 32, grad=True))
+    out.sum().backward()
+    assert calls == [("fwd", f32), ("dgrad", f32 + (torch.float32,)), ("wgrad", f32 + (torch.float32,))]
+    calls.clear()
+    tbl, mask = _meta(6, 27, dtype=torch.int32), _meta(6, 64, dtype=torch.bool)
+    tblock.conv_same(_meta(8, 64, 32), tbl, _meta(27, 32, 64), mask)
+    tblock.conv_down(_meta(8, 64, 32), tbl, _meta(27, 32, 64), mask)
+    tblock.conv_up(_meta(8, 64, 32), tbl, _meta(27, 32, 64), mask)
+    assert calls == [("halo", f32), ("halo", f32), ("block_gather", (torch.float32,)), ("up", f32)]
+    conv = tblock._BlockConv(32, 64, "up", None)
+    assert conv.cat_input(_meta(6, 64, 32), _meta(6, 64, 16)).shape == (6, 64, 48)

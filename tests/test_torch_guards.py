@@ -1,5 +1,5 @@
 """Guards on the port: it imports no JAX, runs on CUDA unless told
-otherwise, and refuses the options it has not ported."""
+otherwise, and takes every option of the reference's config."""
 
 import ast
 import os
@@ -95,13 +95,22 @@ def test_entry_point_needs_cuda_unless_cpu(monkeypatch):
     [({"host_maps": False}, "A9", "cpu"), ({"backbone_compute_dtype": None}, "A11", "cuda")],
 )
 def test_unported_options_raise(change, item, device, monkeypatch):
-    """Device-built pyramids (A9) anywhere; f32 conv operands (A11) on a
-    CUDA device, refused before anything reaches the card (the device is
-    faked)."""
+    """The options that ``item`` (the roadmap item, part of the case's id)
+    ported are accepted: device-built pyramids (A9) and f32 conv operands
+    (A11) on a CUDA device. The pipeline builds, with ``resolve_device`` answering the meta
+    device for the card (this box has none); the card's smoke phases 6f
+    and 12 run both."""
+    import roreg_tpu_torch.pipeline.registration as R
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    real = R.resolve_device
+    monkeypatch.setattr(R, "resolve_device", lambda d=None: torch.device("meta") if device == "cuda" else real(d))
     cfg = PipelineConfig(**{**SMALL, **change})
-    with pytest.raises(NotImplementedError, match=item):
-        RegistrationPipeline(cfg, {}, device=device)
+    pipe = RegistrationPipeline(cfg, init_variables(cfg, 0), device=device)
+    assert pipe.device.type == ("meta" if device == "cuda" else "cpu")
+    assert {k: getattr(pipe.cfg, k) for k in change} == change
+    params = list(pipe.nets["backbone"].parameters())
+    assert params and all(p.device == pipe.device for p in params)
 
 
 def test_yohoc_is_accepted():

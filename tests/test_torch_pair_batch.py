@@ -9,6 +9,8 @@ the one-pair path, so transforms are held to 1e-4 and matching scores to
 1e-5, as ``tests/test_dist_eval.py`` holds the JAX package's own batching.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -177,10 +179,31 @@ def test_pair_batch_from_stacks_equals_jax(variables, variant, per_pair):
     assert np.abs(out["overlap"] - ref["overlap"]).max() <= SCORE_TOL
 
 
-def test_sharded_variants_name_a7():
-    for fn in (dist_eval.eval_pairs_sharded, dist_eval.pair_stacks_sharded):
-        with pytest.raises(NotImplementedError, match="A7"):
-            fn()
+def test_sharded_variants_name_a7(variables):
+    """The sharded variants (ROADMAP item A7, now ported) on a mesh of one
+    process: each equals its batched stage exactly, and a pair count that
+    does not divide among the mesh's ranks is refused (a world of two runs
+    in tests/test_torch_dist.py)."""
+    from roreg_tpu_torch.dist.mesh import make_mesh
+
+    mesh = make_mesh(1, device="cpu")
+    assert (mesh.size, mesh.rank) == (1, 0)
+    cfg = PipelineConfig(**SMALL, **VARIANTS["full_rd_rm_et_yohoo"])
+    pipe = RegistrationPipeline(cfg, variables, device="cpu")
+    clouds = _clouds(4, seed=5)
+    all_bb, all_gf, all_kp = (torch.from_numpy(np.stack([c[k] for c in clouds])) for k in range(3))
+    i0, i1 = torch.tensor([0, 0, 1, 2]), torch.tensor([1, 2, 3, 3])
+    draws = {k: torch.from_numpy(v) for k, v in _draws(cfg, np.random.default_rng(2), B).items()}
+    ref = dist_eval.pair_batch_from_stacks(pipe, i0, i1, all_bb, all_gf, all_kp, **draws)
+    out = dist_eval.pair_stacks_sharded(mesh, pipe, i0, i1, all_bb, all_gf, all_kp, **draws)
+    assert all(torch.equal(out[k], ref[k]) for k in ref)
+    sets = [t[i] for t in (all_bb, all_gf, all_kp) for i in (i0, i1)]  # bb0, bb1, gf0, gf1, k0, k1
+    ref = dist_eval.batched_pair_stage(pipe, *sets, **draws)
+    out = dist_eval.eval_pairs_sharded(mesh, pipe, *sets, **draws)
+    assert all(torch.equal(out[k], ref[k]) for k in ref)
+    bad = dataclasses.replace(mesh, size=3)
+    with pytest.raises(ValueError, match="multiple of the mesh size"):
+        dist_eval.eval_pairs_sharded(bad, pipe, *sets, **draws)
 
 
 # ---------------------------------------------------------------------------
