@@ -36,13 +36,18 @@ Phases, each ending in one flushed progress line on stderr:
    shapes (output blocks per thread block, weight stages);
 3e. f32 kernels: with f32 operands and TF32 off (restored after), each
    conv kernel against its f32 plain version, within ``F32_RTOL`` of the
-   output's largest magnitude: gather_conv at phase 3's 11 shapes (one
-   launch over the stacked two-term split operands at 3 Cin), dgrad and
+   output's largest magnitude: gather_conv at phase 3's 11 shapes (its
+   f32 entry, which splits each gathered f32 row on chip), dgrad and
    wgrad at phase 3d's 20 convs (a launch per bf16 term of W or X), and
-   block_gather (f32 rows), halo_conv (stacked) and up_conv (its f32
-   entry, a loop over the terms) at phase 3b's shapes and at the bench's
-   block capacities; error, times beside the bf16 rows and bounds at f32
-   operand bytes;
+   block_gather (f32 rows), halo_conv (its f32 entry, each halo row split
+   on chip) and up_conv (its f32 entry, a loop over the terms) at phase
+   3b's shapes and at the bench's block capacities; error, times beside
+   the bf16 rows, bounds at f32 operand bytes, and for gather_conv and
+   halo_conv the device memory a call takes beyond its output and packed
+   weights (none: no split copy of the features); each f32 conv call's
+   device time under ``torch.profiler``, split into its kernel and
+   everything else it launches (the weight packing, up_conv's operand
+   split), summed over one chunk's forward;
 3c. reference: ``register_pair`` at a small configuration on the GPU and on
    the CPU (plain versions), gather engine and block engine, whose
    descriptors must agree; and the RM matcher on both devices fed the same
@@ -317,6 +322,27 @@ def cuda_ms(fn, reps: int, warmup: int = 2, flush: torch.Tensor | None = None) -
     return sum(s.elapsed_time(e) for s, e in spans) / reps
 
 
+def device_split_ms(fn, kernel_tag: str, reps: int = 5) -> dict:
+    """Device milliseconds of one warm call of ``fn`` under
+    ``torch.profiler`` (mean over ``reps``), split into the kernels whose
+    names hold ``kernel_tag`` and everything else the call launches."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    device = [e for e in prof.events() if e.device_type == cuda]
+    if not any(kernel_tag in e.name for e in device):
+        raise AssertionError(f"the profiler recorded no {kernel_tag} on the device")
+    kernel = sum(e.time_range.elapsed_us() for e in device if kernel_tag in e.name)
+    other = sum(e.time_range.elapsed_us() for e in device if kernel_tag not in e.name)
+    return {"kernel_device_ms": kernel / 1e3 / reps, "other_device_ms": other / 1e3 / reps}
+
+
 def phase_device() -> dict:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -360,6 +386,33 @@ def phase_build() -> dict:
     return secs
 
 
+def _peak_above(fn) -> tuple[object, int]:
+    """``fn()`` and the device memory its call took at its peak beyond what
+    was allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, torch.cuda.max_memory_allocated() - base
+
+
+def _extra_bytes(call, operands, name: str) -> int:
+    """The device memory one f32 conv call takes at its peak beyond its
+    output and what its weight packing (``operands()``, the wrapper's own
+    step) takes at its peak: 0 up to the allocator's rounding, where a
+    split copy of the features would take 3 Cin bf16 a row. Fails above 1
+    MiB."""
+    packed, pack_peak = _peak_above(operands)
+    del packed
+    res, peak = _peak_above(call)
+    extra = peak - res.numel() * res.element_size() - pack_peak
+    del res
+    if extra > 1 << 20:
+        raise AssertionError(f"{name} at f32: a call took {extra} bytes beyond its output and weight packing")
+    return int(extra)
+
+
 def _f32_err(out: torch.Tensor, ref: torch.Tensor) -> float:
     """An f32 kernel's error: its largest gap to the plain version over the
     plain version's largest magnitude."""
@@ -393,7 +446,8 @@ def phase_kernel(cfg, pair: dict, seed: int, device: str = "cuda",
     gen = torch.Generator(device=dev).manual_seed(seed)
     l2_flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)  # 5x the H100's 50 MB L2
     rows = []
-    total = dict.fromkeys(("ms", "warm_l2_ms", "plain_ms", "bound_ms", "t_ops", "t_bytes", "err"), 0.0)
+    total = dict.fromkeys(("ms", "warm_l2_ms", "plain_ms", "bound_ms", "t_ops", "t_bytes", "err",
+                           "kernel_device_ms", "other_device_ms"), 0.0)
     tol = F32_RTOL if f32 else KERNEL_ATOL
     peak, elem = (PEAK_TF32_FLOPS, 4) if f32 else (PEAK_BF16_FLOPS, 2)
     for (kind, lvl), cin, cout, uses in CONV_SHAPES:
@@ -432,7 +486,11 @@ def phase_kernel(cfg, pair: dict, seed: int, device: str = "cuda",
                         "plain_ms": plain_ms, "ops_ms": t_ops, "bytes_ms": t_bytes, "bound_ms": max(t_ops, t_bytes),
                         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
                         "tflops": ops / ms / 1e9,
-                        **gather_conv_kernel.launch_shape(table.shape[0], 3 * cin if f32 else cin, cout, 27)}
+                        **gather_conv_kernel.launch_shape(table.shape[0], cin, cout, 27, f32)}
+            if f32:
+                row[tag]["extra_bytes"] = _extra_bytes(lambda: gather_conv_kernel(feats, table, w),
+                                                       lambda: gather_conv_kernel.operands(feats, w), "gather_conv")
+                row[tag].update(device_split_ms(lambda: gather_conv_kernel(feats, table, w), "gather_conv_kernel"))
             total["err"] = max(total["err"], checked)
         c = row["chunk"]
         total["ms"] += uses * c["ms"]
@@ -441,6 +499,9 @@ def phase_kernel(cfg, pair: dict, seed: int, device: str = "cuda",
         total["bound_ms"] += uses * c["bound_ms"]
         total["t_ops"] += uses * c["ops_ms"]
         total["t_bytes"] += uses * c["bytes_ms"]
+        if f32:
+            total["kernel_device_ms"] += uses * c["kernel_device_ms"]
+            total["other_device_ms"] += uses * c["other_device_ms"]
         rows.append(row)
         one = "" if f32 else (f"one-rotation err {row['one']['max_abs_err']:.2e} kernel {row['one']['ms']:.3f} ms "
                               f"plain {row['one']['plain_ms']:.3f} ms | ")
@@ -450,10 +511,15 @@ def phase_kernel(cfg, pair: dict, seed: int, device: str = "cuda",
             f"kernel {c['ms']:.3f} ms (warm L2 {c['warm_l2_ms']:.3f}) plain {c['plain_ms']:.3f} ms bound {c['bound_ms']:.4f} ms "
             f"({c['bound_by']}), {c['tflops']:.1f} TFLOP/s (tol {tol}, bit-equal twice); "
             f"rows/CTA {c['rows_per_cta']}, channels/step {c['channels_per_step']}, stages {c['stages']}, "
-            f"cluster split {c['cluster_split']} (chunk)")
+            f"cluster split {c['cluster_split']} (chunk)"
+            + (f", {c['extra_bytes']} bytes beyond output and weight packing; device time kernel "
+               f"{c['kernel_device_ms']:.3f} ms, the rest {c['other_device_ms']:.3f} ms" if f32 else ""))
     total["bound_by"] = "operations" if total["t_ops"] >= total["t_bytes"] else "bytes"
+    split = (f"; device time by the profiler: kernel {total['kernel_device_ms']:.3f} ms, everything else the "
+             f"calls launch {total['other_device_ms']:.3f} ms" if f32 else "")
     progress(f"phase {'3e f32 gather_conv' if f32 else '3 kernel'}: 11 shapes within {tol}; one chunk's 20 convs: kernel "
-             f"{total['ms']:.2f} ms (warm L2 {total['warm_l2_ms']:.2f} ms), plain {total['plain_ms']:.2f} ms, bound {total['bound_ms']:.3f} ms")
+             f"{total['ms']:.2f} ms (warm L2 {total['warm_l2_ms']:.2f} ms), plain {total['plain_ms']:.2f} ms, bound "
+             f"{total['bound_ms']:.3f} ms{split}")
     return total, rows
 
 
@@ -624,13 +690,15 @@ def phase_block_kernels(cfg, pair: dict, seed: int, device: str = "cuda",
     totals = {name: dict.fromkeys(keys, 0.0) for name in names}
     rows = []
 
-    def measure(name, kernel, plain, library, work, uses, tol, label, peak=PEAK_BF16_FLOPS, launch=None):
+    def measure(name, kernel, plain, library, work, uses, tol, label, peak=PEAK_BF16_FLOPS, launch=None,
+                split_tag=None):
         """tol: "exact", or ("abs" | "rel" | "max_rel", limit): "rel" takes
         each element's gap over ``|plain| + 1``, "max_rel" the largest gap
         over the plain version's largest magnitude (then also the total's
         error). library: (one PyTorch
         call computing the same function, what it is). launch: the kernel's
-        launch shape, reported with the row."""
+        launch shape, reported with the row. split_tag: the kernel's name,
+        to split the call's device time into it and the rest."""
         out_k = kernel()
         out_p = plain()
         torch.cuda.synchronize()
@@ -664,8 +732,14 @@ def phase_block_kernels(cfg, pair: dict, seed: int, device: str = "cuda",
         t["uses"] += uses
         for k in keys[:-2]:
             t[k] += uses * row[k]
+        if split_tag:
+            row.update(device_split_ms(kernel, split_tag))
+            for k in ("kernel_device_ms", "other_device_ms"):
+                t[k] = t.get(k, 0.0) + uses * row[k]
         rows.append(row)
         shape = "".join(f", {k} {v}" for k, v in (launch or {}).items())
+        if split_tag:
+            shape += f", device time kernel {row['kernel_device_ms']:.3f} ms, the rest {row['other_device_ms']:.3f} ms"
         progress(f"  {name:12s} {label:34s} err {err:.2e} kernel {row['ms']:.3f} ms (warm L2 "
                  f"{row['warm_l2_ms']:.3f}) plain {row['plain_ms']:.3f} ms library {row['library_ms']:.3f} ms "
                  f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), {row['gbps']:.0f} GB/s, "
@@ -705,7 +779,11 @@ def phase_block_kernels(cfg, pair: dict, seed: int, device: str = "cuda",
                  "torch.nn.functional.conv3d over the halo the plain version materialises (gather not timed)"),
                 halo_work(tbl, mask, cin, cout, stride, elem), uses, conv_tol,
                 f"{kind}[{lvl}] {cin}->{cout} B={tbl.shape[0]} {str(dtype)[6:]}", conv_peak,
-                launch=halo_conv_kernel.launch_shape(3 * cin if f32 else cin, cout, span, stride))
+                launch={**halo_conv_kernel.launch_shape(cin, cout, span, stride, f32),
+                        **({"extra_bytes": _extra_bytes(lambda: halo_conv_kernel(feats, tbl, w, mask, span, stride),
+                                                        lambda: halo_conv_kernel.operands(feats, w), "halo_conv")}
+                           if f32 else {})},
+                split_tag="halo_conv_kernel" if f32 else None)
         del halo
 
     for layer, lvl, cin, cout in UP_SHAPES:
@@ -723,7 +801,7 @@ def phase_block_kernels(cfg, pair: dict, seed: int, device: str = "cuda",
                  "(layouts made outside the timed span)"),
                 up_work(tbl, mask, cin, cout, elem), 1, conv_tol,
                 f"{layer} [{lvl}] {cin}->{cout} B={tbl.shape[0]} {str(dtype)[6:]}", conv_peak,
-                launch=up_conv_kernel.launch_shape(cin, cout))
+                launch=up_conv_kernel.launch_shape(cin, cout), split_tag="up_conv_kernel" if f32 else None)
         del reg5
 
     if f32:  # the f32 path runs neither skip_concat nor (in another type) cell_dense
@@ -766,6 +844,8 @@ def phase_block_kernels(cfg, pair: dict, seed: int, device: str = "cuda",
         f"{[o.shape[0] for o in occs]} blocks per level; one chunk's forward: " + "; ".join(
             f"{n} x{int(t['uses'])} kernel {t['ms']:.2f} ms, plain {t['plain_ms']:.2f} ms, library "
             f"{t['library_ms']:.2f} ms, bound {t['bound_ms']:.3f} ms ({t['bound_by']}), max err {t['err']:.1e}"
+            + (f", device time by the profiler: kernel {t['kernel_device_ms']:.3f} ms, everything else the calls "
+               f"launch {t['other_device_ms']:.3f} ms" if "kernel_device_ms" in t else "")
             for n, t in totals.items()))
     return totals, rows
 
@@ -810,6 +890,7 @@ def phase_slice(cfg, pair: dict, seed: int, per_chunk: dict, tag: str, device: s
     kernels = _kernels()
     for k in kernels.values():
         k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = pipe.register_pair(pair["points0"], None, pair["keys0"], pair["points1"], None,
                              pair["keys1"], generator=gen, timings=timings)
@@ -1589,16 +1670,18 @@ def _f32_fields(t: dict | None, launches: int, same_as: dict | None = None) -> d
     + 1``); ``t`` None: a kernel the f32 path does not run (skip_concat)."""
     t = t or same_as
     if t is None:
-        return {"f32_max_rel_err": None, "f32_ms": None, "f32_bound_ms": None, "f32_launches": launches}
-    return {"f32_max_rel_err": t["err"], "f32_ms": t["ms"], "f32_bound_ms": t["bound_ms"], "f32_launches": launches}
+        return {"f32_max_rel_err": None, "f32_ms": None, "f32_bound_ms": None, "f32_plain_ms": None,
+                "f32_library_ms": None, "f32_launches": launches}
+    return {"f32_max_rel_err": t["err"], "f32_ms": t["ms"], "f32_bound_ms": t["bound_ms"],
+            "f32_plain_ms": t["plain_ms"], "f32_library_ms": t.get("library_ms"), "f32_launches": launches}
 
 
 def phase_backbone_train_f32(seed: int, device: str = "cuda") -> dict:
     """Phase 11c: ``cli.train --component backbone`` with the CLI's
     ``PipelineConfig`` at ``backbone_compute_dtype=None`` (f32 convs on the
     card) for ``BACKBONE_F32_STEPS`` steps: every loss finite, a step
-    launching gather_conv 40 times (one a conv: the stacked split
-    operands) and dgrad and wgrad 80 times each (one a bf16 term of W or
+    launching gather_conv 40 times (one a conv: its f32 entry) and dgrad
+    and wgrad 80 times each (one a bf16 term of W or
     X); then the 12-step overfit at f32 must lower the loss."""
     import contextlib
     import functools
@@ -1690,22 +1773,43 @@ def _pyramid_diff(d, h, rep_points: bool = True) -> list[str]:
     return bad
 
 
+def _tensor_pyramid_diff(d, c) -> list[str]:
+    """The leaves (by path) in which two pyramids of tensors differ."""
+    bad = []
+
+    def walk(a, b, path):
+        if isinstance(a, torch.Tensor):
+            if not torch.equal(a.cpu(), b.cpu()):
+                bad.append(path)
+        elif hasattr(a, "_fields"):
+            for f in a._fields:
+                walk(getattr(a, f), getattr(b, f), f"{path}.{f}")
+        elif isinstance(a, (list, tuple)):
+            for i, (x, y) in enumerate(zip(a, b)):
+                walk(x, y, f"{path}[{i}]")
+    walk(d, c, "pyramid")
+    return bad
+
+
 def phase_device_pyramids(pair: dict, seed: int, device: str = "cuda") -> dict:
     """Phase 12: ``PipelineConfig(engine="gather", host_maps=False)`` at its
     default capacities (32768/16384/8192/4096, G = 60) on the smoke pair.
-    For every rotation of each cloud the device build and the host builder,
-    fed the same device-rotated points, give every table, mask,
-    ``to_voxel`` and representative point bit for bit (the host quantizes
-    with ``p * (1 / voxel)``, the reference with ``p / voxel``, and
-    PyTorch's CUDA division by a Python number as the host: the count of
-    points whose two floors differ is printed). The
-    device-built describe of cloud 0 equals the host-map describe within
-    gather_conv's 1e-3 at every rotation whose two paths' pyramids are equal
-    (the host path rotates on the host, the device path on the card); a
-    rotation where they differ fails unless its host- and device-rotated
-    points differ. ``register_pair`` registers the pair to a rigid motion
-    with 20 gather_conv launches a chunk. The device and host build seconds
-    of a cloud's 60 rotations are printed."""
+    The device build divides exactly, as the reference (``p / voxel``); the
+    host builder quantizes with ``p * (1 / voxel)``. For every rotation of
+    each cloud, fed the same device-rotated points: where no point has
+    ``floor(p / voxel) != floor(p * (1 / voxel))`` in f32, the device build
+    and the host builder give every table, mask, ``to_voxel`` and
+    representative point bit for bit; where one does, the device build
+    equals the same code run on the CPU (an exact division there too) in
+    every leaf. The rotations under each check and the points whose floors
+    differ are counted. The device-built describe of cloud 0 equals the
+    host-map describe within gather_conv's 1e-3 at every rotation whose two
+    paths' pyramids are equal (the host path rotates on the host, the
+    device path on the card); a rotation where they differ fails unless its
+    host- and device-rotated points differ or one of its points' floors
+    differ. ``register_pair`` registers the pair to a rigid motion with 20
+    gather_conv launches a chunk. The device and host build seconds of a
+    cloud's 60 rotations are printed."""
     import dataclasses as dc
 
     from roreg_tpu_torch.core.group import get_group
@@ -1721,29 +1825,45 @@ def phase_device_pyramids(pair: dict, seed: int, device: str = "cuda") -> dict:
     inv = np.float32(1.0) / np.float32(cfg.voxel_size)
     out: dict = {"bit_equal": {}}
 
+    def build(p):
+        ones = torch.ones(p.shape[0], dtype=torch.bool, device=p.device)
+        return build_pyramid(p, ones, cfg.voxel_size, cfg.capacities, conv1_kernel_size=cfg.conv1_kernel_size)
+
     def device_build(pts_dev, R):
         p = pts_dev @ torch.from_numpy(R).to(dev).T
-        ones = torch.ones(p.shape[0], dtype=torch.bool, device=dev)
-        return p, build_pyramid(p, ones, cfg.voxel_size, cfg.capacities, conv1_kernel_size=cfg.conv1_kernel_size)
+        return p, build(p)
+
+    def floor_flips(p: np.ndarray) -> int:
+        return int((np.floor(p / np.float32(cfg.voxel_size)) != np.floor(p * inv)).any(1).sum())
 
     for cloud in ("points0", "points1"):
         pts_dev = torch.from_numpy(pair[cloud]).to(dev)
-        flips = 0
+        flips, vs_host, vs_exact = 0, 0, 0
         for g in range(cfg.group_size):
             p_dev, d = device_build(pts_dev, rots[g])
             p = p_dev.cpu().numpy()
-            flip = int((np.floor(p / np.float32(cfg.voxel_size)) != np.floor(p * inv)).any(1).sum())
-            h = _host_pyramid(p, cfg)
-            bad = _pyramid_diff(d, h)
-            if not np.array_equal(d.grid.to_voxel.cpu().numpy(), host_to_voxel(p, cfg.voxel_size, cfg.capacities[0])):
-                bad.append("to_voxel")
+            flip = floor_flips(p)
+            if flip == 0:  # the host builder's quantization is the exact one here
+                h = _host_pyramid(p, cfg)
+                bad = _pyramid_diff(d, h)
+                if not np.array_equal(d.grid.to_voxel.cpu().numpy(),
+                                      host_to_voxel(p, cfg.voxel_size, cfg.capacities[0])):
+                    bad.append("to_voxel")
+                vs_host += 1
+                what = "the host builder"
+            else:  # the same code on the CPU: the exact division
+                bad = _tensor_pyramid_diff(d, build(torch.from_numpy(p)))
+                vs_exact += 1
+                what = "the exact-division build on the CPU"
             if bad:
-                raise AssertionError(f"phase 12 {cloud} rotation {g}: device and host builds differ in {bad} "
-                                     f"({flip} points whose floor(p / voxel) and floor(p * (1 / voxel)) differ)")
+                raise AssertionError(f"phase 12 {cloud} rotation {g}: the device build and {what} differ in "
+                                     f"{bad} ({flip} points whose floor(p / voxel) and floor(p * (1 / voxel)) "
+                                     "differ)")
             flips += flip
             if g == 0:
-                out["bit_equal"][cloud] = {"voxels_rotation0": [int(l.num) for l in h.levels]}
-        out["bit_equal"][cloud].update({"rotations": cfg.group_size, "floor_flips": flips})
+                out["bit_equal"][cloud] = {"voxels_rotation0": [int(l.num) for l in d.levels]}
+        out["bit_equal"][cloud].update({"rotations": cfg.group_size, "floor_flips": flips,
+                                        "held_to_host_builder": vs_host, "held_to_exact_division": vs_exact})
 
     pts_dev = torch.from_numpy(pair["points0"]).to(dev)
     torch.cuda.synchronize()
@@ -1757,11 +1877,12 @@ def phase_device_pyramids(pair: dict, seed: int, device: str = "cuda") -> dict:
     out["host_build_s"] = time.perf_counter() - t0
     same = [not _pyramid_diff(d, h, rep_points=False) for (_, d), h in zip(built, hosts)]
     rot_gap = [float(np.abs(p.cpu().numpy() - hp).max()) for (p, _), hp in zip(built, host_pts)]
+    host_flips = [floor_flips(hp) for hp in host_pts]
     del built, hosts
-    unexplained = [g for g in range(cfg.group_size) if not same[g] and rot_gap[g] == 0.0]
+    unexplained = [g for g in range(cfg.group_size) if not same[g] and rot_gap[g] == 0.0 and host_flips[g] == 0]
     if unexplained:
         raise AssertionError(f"phase 12: the device and host builds differ at rotations {unexplained}, whose "
-                             "host- and device-rotated points are equal")
+                             "host- and device-rotated points are equal and quantize alike")
 
     variables = init_variables(cfg, seed)
     feats = {}
@@ -1779,7 +1900,8 @@ def phase_device_pyramids(pair: dict, seed: int, device: str = "cuda") -> dict:
                 "rotations_differing": {g: float(gap[g]) for g in range(cfg.group_size) if not same[g]}})
     out["slice"] = phase_slice(cfg, pair, seed, {"gather_conv": 20}, "phase 12 device-built pyramids", device)
     progress(f"phase 12 device-built pyramids: all {cfg.group_size} rotations of both clouds bit-equal to "
-             f"the host builder ({out['bit_equal']}); describe within {err:.2e} of the host-map describe at "
+             f"the host builder where no point's floors differ and to the exact-division build on the CPU where "
+             f"one does ({out['bit_equal']}); describe within {err:.2e} of the host-map describe at "
              f"{len(held)} of {cfg.group_size} rotations (tol {KERNEL_ATOL}; pyramids differ at "
              f"{out['rotations_differing']}); a cloud's {cfg.group_size} pyramids: device build {out['device_build_s']:.3f} s, "
              f"host build {out['host_build_s']:.3f} s (one thread, serial)")

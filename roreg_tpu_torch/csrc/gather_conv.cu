@@ -58,12 +58,31 @@
 // float atomics are used. Knock-out runs on the card showed that no one
 // component (gathers, weight copies, products) holds the time: the
 // per-step barrier and waits and the per-tile prologue do.
+//
+// The f32 entry (gather_conv_f32) takes f32 feats and f32 weights, the
+// latter packed by the caller (kernels/gather_conv.py pack_split_weights,
+// tap-major, two stages a step) as the two bf16 terms Wh = bf16(w), Wl =
+// bf16(w - Wh) of each step side by side, [Wh ; Wl]. It runs 32 channels a
+// step. Each gathered f32 row piece is read from device memory once: the
+// consumer's cp.async gathers bring a step's rows as f32 into its ring
+// slot, and at the step each thread splits the pieces it gathered itself
+// into a hi and a lo bf16 A stage (Xh = bf16(x), Xl = bf16(x - Xh)) in the
+// K-major core-matrix layout, before the step's proxy fence and named
+// barrier; the step then runs the three products Xh Wh + Xh Wl + Xl Wh into
+// the same f32 accumulators (the arithmetic of kernels/split.py, about 3 *
+// 2^-18 of a product lost). The split stages rotate through three (hi, lo)
+// pairs, so the step that wrote a pair three steps earlier has finished its
+// products for every warp by the previous step's barrier, and one barrier a
+// step still suffices. The ring keeps three or more slots (two steps
+// gathered ahead of the one multiplied): 96-98 KB at Cout <= 128, two
+// thread blocks an SM; 144 KB at Cout 256.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -78,28 +97,35 @@ constexpr int kLDI = kMaxK + 1;     // index row pitch: a column's reads hit 32 
 constexpr int kWG = 128;            // the consumer warpgroup
 constexpr int kThreads = kWG + 32;  // and the producer warp
 
-// KC input channels per step (KC / 16 wgmma K steps)
-template <int COUT, int KC>
+// KC input channels per step (KC / 16 wgmma K steps); F32: the f32 entry
+template <int COUT, int KC, bool F32>
 struct Layout {
-  static constexpr int kAStage = kBM * KC * 2;  // a gathered A stage
+  static constexpr int kAStage = kBM * KC * 2;  // a bf16 A stage
   static constexpr int kASbo = KC * 16;         // bytes between its 8-row core matrix groups
-  static constexpr int kBStage = KC * COUT * 2;
-  static constexpr int kSlot = kAStage + kBStage;
-  // a ring of at most 100 KB, so that two thread blocks share an SM
-  static constexpr int kStages = 102400 / kSlot < 8 ? 102400 / kSlot : 8;
+  static constexpr int kBStage = KC * COUT * 2;  // one term's weights of a step
+  // a ring slot: the step's gathered rows (bf16 A stage, or f32) and its
+  // weights (one stage, or [Wh ; Wl])
+  static constexpr int kGather = F32 ? kBM * KC * 4 : kAStage;
+  static constexpr int kSlot = kGather + (F32 ? 2 : 1) * kBStage;
+  static constexpr int kSplitBytes = F32 ? 3 * 2 * kAStage : 0;  // three (hi, lo) A stage pairs
+  // a ring of at most 100 KB with the split stages, so that two thread
+  // blocks share an SM; three slots at f32 and Cout 256
+  static constexpr int kRingBytes = F32 && COUT == 256 ? 3 * kSlot : 102400 - kSplitBytes;
+  static constexpr int kStages = kRingBytes / kSlot < 8 ? kRingBytes / kSlot : 8;
   static constexpr int kPitch = COUT + 8;  // f32 row pitch of a partial tile
-  static constexpr int kBarOff = kStages * kSlot;
+  static constexpr int kSplitOff = kStages * kSlot;
+  static constexpr int kBarOff = kSplitOff + kSplitBytes;
   static constexpr int kBytes = kBarOff + 2 * kStages * 8;
   static_assert(kStages >= 3, "two steps gathered ahead of the one multiplied");
   static_assert(kBM * kPitch * 4 <= kBarOff, "a partial tile fits in the drained ring");
 };
 
-template <int COUT, int KC, int SPLIT>
+template <int COUT, int KC, int SPLIT, bool F32>
 __global__ void __launch_bounds__(kThreads)
-gather_conv_kernel(const __nv_bfloat16* __restrict__ feats, const int32_t* __restrict__ nbr,
-                   const __nv_bfloat16* __restrict__ wp, float* __restrict__ out, int64_t m,
-                   int64_t n, int cin, int kvol) {
-  using L = Layout<COUT, KC>;
+gather_conv_kernel(const std::conditional_t<F32, float, __nv_bfloat16>* __restrict__ feats,
+                   const int32_t* __restrict__ nbr, const __nv_bfloat16* __restrict__ wp,
+                   float* __restrict__ out, int64_t m, int64_t n, int cin, int kvol) {
+  using L = Layout<COUT, KC, F32>;
   constexpr int kStages = L::kStages;
   extern __shared__ __align__(1024) unsigned char smem[];
   __shared__ int idx_s[kBM * kLDI];
@@ -186,39 +212,90 @@ gather_conv_kernel(const __nv_bfloat16* __restrict__ feats, const int32_t* __res
         if (s >= kStages) mbar_wait(empty0 + 8 * slot, (s / kStages - 1) & 1);
         const int k = used_s[j0 + s / chunks];
         const int c = s - (s / chunks) * chunks;
-        mbar_arrive_expect_tx(full0 + 8 * slot, L::kBStage);
-        bulk_copy(smem_addr(smem + slot * L::kSlot + L::kAStage),
-                  wp + (static_cast<int64_t>(k) * (cin / 16) + (KC / 16) * c) * 16 * COUT,
-                  L::kBStage, full0 + 8 * slot);
+        constexpr int kBBytes = L::kSlot - L::kGather;
+        mbar_arrive_expect_tx(full0 + 8 * slot, kBBytes);
+        bulk_copy(smem_addr(smem + slot * L::kSlot + L::kGather),
+                  wp + (static_cast<int64_t>(k) * (cin / 16) + (KC / 16) * c) * (F32 ? 2 : 1) * 16 * COUT,
+                  kBBytes, full0 + 8 * slot);
       }
     }
   } else {  // consumer warpgroup: gathers the A stages and multiplies
     const int warp = tid / 32;
     const int lane = tid % 32;
     // step s's gather into its slot, one cp.async group (empty past the
-    // end): row r's 16-byte piece j (channels 8j..8j+7 of the chunk) goes
-    // to core matrix (r / 8, j), byte (r / 8) * 16 KC + j * 128 + (r % 8) *
-    // 16; an absent row is zeroed by a shared-memory store and reads nothing
+    // end); an absent row is zeroed by shared-memory stores and reads
+    // nothing. bf16: row r's 16-byte piece j (channels 8j..8j+7 of the
+    // chunk) goes to core matrix (r / 8, j), byte (r / 8) * 16 KC + j * 128
+    // + (r % 8) * 16. f32: this thread's unit e (row r, channels 8j..8j+7)
+    // comes as two 16-byte halves to bytes (h * kUnits + e) * 16, h = 0, 1,
+    // for this thread alone to split; eight consecutive threads take one
+    // piece of eight consecutive rows, so the split stages' stores of a
+    // quarter warp fill 128 contiguous bytes
+    constexpr int kUnits = kBM * (KC / 8);  // (row, 8-channel piece) units of a step
+    auto unit = [](int e, int& r, int& j) {
+      if constexpr (F32) {
+        r = (e / KC) * 8 + (e & 7);
+        j = (e >> 3) % (KC / 8);
+      } else {
+        r = e / (KC / 8);
+        j = e % (KC / 8);
+      }
+    };
     auto gather = [&](int s) {
       if (s < steps) {
         const int k = used_s[j0 + s / chunks];
         const int c = s - (s / chunks) * chunks;
         const uint32_t a_s = smem_addr(smem + (s % kStages) * L::kSlot);
 #pragma unroll
-        for (int i = 0; i < kBM * (KC / 8) / kWG; ++i) {
+        for (int i = 0; i < kUnits / kWG; ++i) {
           const int e = tid + i * kWG;
-          const int r = e / (KC / 8);
-          const int j = e % (KC / 8);
+          int r, j;
+          unit(e, r, j);
           const int src = idx_s[r * kLDI + k];
-          const uint32_t dst = a_s + (r >> 3) * L::kASbo + j * 128 + (r & 7) * 16;
-          if (src >= 0) {
-            cp_async_16(dst, feats + static_cast<int64_t>(src) * cin + c * KC + j * 8, 16);
+          if constexpr (F32) {
+            const float* from = feats + static_cast<int64_t>(src < 0 ? 0 : src) * cin + c * KC + j * 8;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const uint32_t dst = a_s + (h * kUnits + e) * 16;
+              if (src >= 0) {
+                cp_async_16(dst, from + 4 * h, 16);
+              } else {
+                st_shared_zero16(dst);
+              }
+            }
           } else {
-            st_shared_zero16(dst);
+            const uint32_t dst = a_s + (r >> 3) * L::kASbo + j * 128 + (r & 7) * 16;
+            if (src >= 0) {
+              cp_async_16(dst, feats + static_cast<int64_t>(src) * cin + c * KC + j * 8, 16);
+            } else {
+              st_shared_zero16(dst);
+            }
           }
         }
       }
       cp_async_commit();
+    };
+    // f32: this thread's units of step s, split into the hi and lo A stages
+    // of pair s % 3
+    auto split = [&](int s) {
+      const float* g = reinterpret_cast<const float*>(smem + (s % kStages) * L::kSlot);
+      unsigned char* hi = smem + L::kSplitOff + (s % 3) * 2 * L::kAStage;
+#pragma unroll
+      for (int i = 0; i < kUnits / kWG; ++i) {
+        const int e = tid + i * kWG;
+        int r, j;
+        unit(e, r, j);
+        const float4 v0 = *reinterpret_cast<const float4*>(g + 4 * e);
+        const float4 v1 = *reinterpret_cast<const float4*>(g + 4 * (kUnits + e));
+        uint4 h, l;
+        split_bf16x2(v0.x, v0.y, h.x, l.x);
+        split_bf16x2(v0.z, v0.w, h.y, l.y);
+        split_bf16x2(v1.x, v1.y, h.z, l.z);
+        split_bf16x2(v1.z, v1.w, h.w, l.w);
+        const int at = (r >> 3) * L::kASbo + j * 128 + (r & 7) * 16;
+        *reinterpret_cast<uint4*>(hi + at) = h;
+        *reinterpret_cast<uint4*>(hi + L::kAStage + at) = l;
+      }
     };
     float acc[COUT / 2];
 #pragma unroll
@@ -230,17 +307,25 @@ gather_conv_kernel(const __nv_bfloat16* __restrict__ feats, const int32_t* __res
     for (int s = 0; s < steps; ++s) {
       const int slot = s % kStages;
       cp_async_wait<kStages - 3>();  // this thread's rows of step s have landed
+      if constexpr (F32) split(s);   // and are split into the A stages
       fence_proxy_async();           // its writes, to wgmma's reads
       named_barrier(1, kWG);         // and every other thread's
       gather(s + kStages - 2);
       mbar_wait(full0 + 8 * slot, (s / kStages) & 1);
       __syncwarp();  // converged for the .aligned wgmma instructions
       wgmma_fence();
-      const uint32_t a_s = smem_addr(smem + slot * L::kSlot);
+      const uint32_t b_s = smem_addr(smem + slot * L::kSlot + L::kGather);
+      const uint32_t a_s = F32 ? smem_addr(smem + L::kSplitOff + (s % 3) * 2 * L::kAStage)
+                               : smem_addr(smem + slot * L::kSlot);
 #pragma unroll
       for (int kk = 0; kk < KC / 16; ++kk) {
-        wgmma_tile_ss<COUT>(acc, smem_desc(a_s + kk * 256, 128, L::kASbo),
-                            a_s + L::kAStage + kk * 16 * COUT * 2);
+        const uint64_t a_desc = smem_desc(a_s + kk * 256, 128, L::kASbo);
+        wgmma_tile_ss<COUT>(acc, a_desc, b_s + kk * 16 * COUT * 2);
+        if constexpr (F32) {
+          wgmma_tile_ss<COUT>(acc, a_desc, b_s + L::kBStage + kk * 16 * COUT * 2);  // Xh Wl
+          wgmma_tile_ss<COUT>(acc, smem_desc(a_s + L::kAStage + kk * 256, 128, L::kASbo),
+                              b_s + kk * 16 * COUT * 2);  // Xl Wh
+        }
       }
       wgmma_commit();
       wgmma_wait<1>();  // the previous step's products have read its slot
@@ -325,11 +410,12 @@ int default_split(int64_t m, int cin, int kvol) {
 // block an SM (Cout 64) or leave too few ring slots (Cout 256)
 int default_kc(int cin, int cout) { return cin % 64 == 0 && cout == 128 ? 64 : 32; }
 
-template <int COUT, int KC, int SPLIT>
+template <int COUT, int KC, int SPLIT, bool F32>
 int launch(const void* feats, const void* nbr, const void* wp, void* out, int64_t m, int64_t n,
            int cin, int kvol, cudaStream_t stream) {
-  using L = Layout<COUT, KC>;
-  auto kernel = gather_conv_kernel<COUT, KC, SPLIT>;
+  using L = Layout<COUT, KC, F32>;
+  using Feat = std::conditional_t<F32, float, __nv_bfloat16>;
+  auto kernel = gather_conv_kernel<COUT, KC, SPLIT, F32>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   cudaLaunchConfig_t cfg = {};
@@ -344,20 +430,21 @@ int launch(const void* feats, const void* nbr, const void* wp, void* out, int64_
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = SPLIT > 1 ? 1 : 0;
-  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const __nv_bfloat16*>(feats),
+  err = cudaLaunchKernelEx(&cfg, kernel, static_cast<const Feat*>(feats),
                            static_cast<const int32_t*>(nbr), static_cast<const __nv_bfloat16*>(wp),
                            static_cast<float*>(out), m, n, cin, kvol);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-// calls f(Int<COUT>, Int<KC>, Int<SPLIT>) for a call; false for arguments
-// the kernel does not take
+// calls f(Int<COUT>, Int<KC>, Int<SPLIT>) for a call of the bf16 or (f32)
+// the f32 entry, which runs 32 channels a step; false for arguments the
+// kernel does not take
 template <typename F>
-bool dispatch(int64_t m, int cin, int cout, int kvol, F&& f) {
+bool dispatch(int64_t m, int cin, int cout, int kvol, bool f32, F&& f) {
   if (m < 0 || cin <= 0 || cin % 32 != 0 || kvol < 1 || kvol > kMaxK) return false;
   const int split = default_split(m, cin, kvol);
-  const bool wide = default_kc(cin, cout) == 64;
+  const bool wide = !f32 && default_kc(cin, cout) == 64;
   auto by_split = [&](auto co, auto kc) {
     switch (split) {
       case 1: f(co, kc, Int<1>{}); return true;
@@ -374,20 +461,48 @@ bool dispatch(int64_t m, int cin, int cout, int kvol, F&& f) {
   }
 }
 
+template <bool F32>
+int run(const void* feats, const void* nbr, const void* wp, void* out, int64_t m, int64_t n,
+        int cin, int cout, int kvol, void* stream) {
+  if (n < 0 || n > 0x7fffffff || m / kBM * 4 > 0x7fffffff) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int rc = 0;
+  const bool ok = dispatch(m, cin, cout, kvol, F32, [&](auto co, auto kc, auto sp) {
+    if constexpr (!F32 || decltype(kc)::value == 32) {
+      if (m > 0) {
+        rc = launch<decltype(co)::value, decltype(kc)::value, decltype(sp)::value, F32>(
+            feats, nbr, wp, out, m, n, cin, kvol, s);
+      }
+    }
+  });
+  return ok ? rc : static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
 extern "C" {
 
-// The launch shape for a call: output rows per tile, input channels per
-// step, slots in the ring, and thread blocks per tile (the cluster split).
+// The launch shape for a call of the bf16 (f32 = 0) or the f32 entry:
+// output rows per tile, input channels per step, slots in the ring, thread
+// blocks per tile (the cluster split), and dynamic shared memory bytes.
 // Returns cudaErrorInvalidValue for arguments the kernel does not take.
-int gather_conv_launch_shape(int64_t m, int cin, int cout, int kvol, int* rows, int* channels,
-                             int* stages, int* split) {
-  const bool ok = dispatch(m, cin, cout, kvol, [&](auto co, auto kc, auto sp) {
-    *rows = kBM;
-    *channels = decltype(kc)::value;
-    *stages = Layout<decltype(co)::value, decltype(kc)::value>::kStages;
-    *split = decltype(sp)::value;
+int gather_conv_launch_shape(int64_t m, int cin, int cout, int kvol, int f32, int* rows,
+                             int* channels, int* stages, int* split, int* smem_bytes) {
+  const bool ok = dispatch(m, cin, cout, kvol, f32 != 0, [&](auto co, auto kc, auto sp) {
+    auto fill = [&](auto layout) {
+      using L = decltype(layout);
+      *rows = kBM;
+      *channels = decltype(kc)::value;
+      *stages = L::kStages;
+      *split = decltype(sp)::value;
+      *smem_bytes = L::kBytes;
+    };
+    if constexpr (decltype(kc)::value == 32) {  // the f32 entry's only width a step
+      if (f32) return fill(Layout<decltype(co)::value, 32, true>{});
+    }
+    fill(Layout<decltype(co)::value, decltype(kc)::value, false>{});
   });
   return ok ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
@@ -398,18 +513,14 @@ int gather_conv_launch_shape(int64_t m, int cin, int cout, int kvol, int* rows, 
 // owns every buffer; feats, wp and out are 16-byte aligned.
 int gather_conv_bf16(const void* feats, const void* nbr, const void* wp, void* out, int64_t m,
                      int64_t n, int cin, int cout, int kvol, void* stream) {
-  if (n < 0 || n > 0x7fffffff || m / kBM * 4 > 0x7fffffff) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int rc = 0;
-  const bool ok = dispatch(m, cin, cout, kvol, [&](auto co, auto kc, auto sp) {
-    if (m > 0) {
-      rc = launch<decltype(co)::value, decltype(kc)::value, decltype(sp)::value>(
-          feats, nbr, wp, out, m, n, cin, kvol, s);
-    }
-  });
-  return ok ? rc : static_cast<int>(cudaErrorInvalidValue);
+  return run<false>(feats, nbr, wp, out, m, n, cin, cout, kvol, stream);
+}
+
+// The f32 entry (the header's last paragraph): feats (N, Cin) f32, wp the
+// [Wh ; Wl] steps of the split f32 weights; otherwise as gather_conv_bf16.
+int gather_conv_f32(const void* feats, const void* nbr, const void* wp, void* out, int64_t m,
+                    int64_t n, int cin, int cout, int kvol, void* stream) {
+  return run<true>(feats, nbr, wp, out, m, n, cin, cout, kvol, stream);
 }
 
 }  // extern "C"

@@ -72,11 +72,32 @@
 // leaves without starting the producer; a block without occupied cells
 // beside a live one takes no neighbour, so its halo is zero-filled and its
 // output masked. Dynamic shared memory is at most 195 KB (SPAN 9, Cout 256).
+//
+// The f32 entry (halo_conv_f32) takes f32 feats and f32 weights, the latter
+// packed by the caller (kernels/halo_conv.py pack_split_weights) as the two
+// bf16 terms Wh = bf16(w), Wl = bf16(w - Wh) of each stage, side by side in
+// one ring slot, [Wh ; Wl], with the 16 input rows of both in the order
+// F32_K_ORDER. Each f32 source row of a chunk is read from device memory
+// once, into the halo in shared memory (64-byte rows, no padding: at
+// STRIDE 2 the halo position h sits at row h ^ ((h >> 1) & 1), so the two
+// rows an 8-lane phase of a 16-byte load reads lie in different halves of
+// the banks). Each lane loads its four channels of its two A rows of a tap
+// as two 16-byte words, K index k of the stage being channel F32_K_ORDER[k]
+// so that those four are adjacent, and splits them in registers into a hi
+// and a lo A fragment (Xh = bf16(x), Xl = bf16(x - Xh)); a tap runs the
+// three products Xh Wh + Xh Wl + Xl Wh into the same f32 accumulators, the
+// arithmetic of kernels/split.py (about 3 * 2^-18 of a product lost; Xl Wl
+// is dropped). The halo is double-buffered where that leaves room for four
+// weight slots, else (SPAN 9, Cout 256) single-buffered, the next chunk's
+// rows then loading after this chunk's taps. Dynamic shared memory is at
+// most 226 KB (SPAN 9, Cout 128). The f32 entry does three times the bf16
+// entry's products on twice its halo bytes and no other pass.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -87,12 +108,14 @@ using namespace hopper;
 constexpr int kCells = 64;
 constexpr int kTaps = 27;
 constexpr int kKC = 16;        // input channels per chunk: one wgmma K step
-constexpr int kLDH = kKC + 8;  // halo row pitch in bf16: 48 bytes
+constexpr int kLDH = kKC + 8;  // bf16 halo row pitch in bf16: 48 bytes
 constexpr int kWG = 128;       // threads of a warpgroup
 
 constexpr int kBPC = 2;  // output blocks (consumer warpgroups) per thread block: a pair
+// dynamic shared memory a thread block may take, beside its static arrays
+constexpr int kSmemBudget = 232448 - 1024;
 
-template <int SPAN, int COUT>
+template <int SPAN, int COUT, bool F32>
 struct Layout {
   // output blocks per consumer warpgroup: two where their accumulators and
   // halos fit
@@ -100,29 +123,54 @@ struct Layout {
   static constexpr int kBlocks = kBPC * kBPW;  // output blocks per thread block
   static constexpr int kSpan3 = SPAN * SPAN * SPAN;
   static constexpr int kThreads = kWG * kBPC + 32;
-  static constexpr int kStageBytes = COUT * kKC * 2;
-  // weight ring: 48 KB, or 32 KB beside the halos of two blocks a warpgroup
-  static constexpr int kRingBytes = kBPW == 2 ? 32768 : 49152;
-  static constexpr int kStages = kRingBytes / kStageBytes < 16 ? kRingBytes / kStageBytes : 16;
-  static constexpr int kHaloBytes = kSpan3 * kLDH * 2;  // one chunk of one block
-  // shared memory: weight ring | halo [kBlocks][2] | halo rows [kBlocks] | barriers
-  static constexpr int kHaloOff = kStages * kStageBytes;
-  static constexpr int kRowOff = kHaloOff + kBlocks * 2 * kHaloBytes;
-  static constexpr int kBarOff = (kRowOff + kBlocks * kSpan3 * 4 + 7) / 8 * 8;
+  static constexpr int kStageBytes = COUT * kKC * 2;  // one bf16 weight stage
+  // a ring slot: one stage, or at f32 the two terms' stages [Wh ; Wl]
+  static constexpr int kSlotBytes = F32 ? 2 * kStageBytes : kStageBytes;
+  static constexpr int kRowBytes = F32 ? kKC * 4 : kLDH * 2;  // a halo row of one chunk
+  static constexpr int kHaloBytes = kSpan3 * kRowBytes;        // one chunk of one block
+  static constexpr int kRowTableBytes = kBlocks * kSpan3 * 4;
+  // halo buffers: two (the next chunk loads while this one's taps run),
+  // or at f32 one where two would leave less than four weight slots
+  static constexpr int kBufs =
+      !F32 || kBlocks * 2 * kHaloBytes + kRowTableBytes + 4 * kSlotBytes + 256 <= kSmemBudget ? 2 : 1;
+  // weight ring: bf16 48 KB, or 32 KB beside the halos of two blocks a
+  // warpgroup; f32 what the halos leave, at most 16 slots
+  static constexpr int kFree = kSmemBudget - kBlocks * kBufs * kHaloBytes - kRowTableBytes - 256;
+  static constexpr int kRingBytes = F32 ? kFree : (kBPW == 2 ? 32768 : 49152);
+  static constexpr int kStages = kRingBytes / kSlotBytes < 16 ? kRingBytes / kSlotBytes : 16;
+  // shared memory: weight ring | halo [kBlocks][kBufs] | halo rows [kBlocks] | barriers
+  static constexpr int kHaloOff = kStages * kSlotBytes;
+  static constexpr int kRowOff = kHaloOff + kBlocks * kBufs * kHaloBytes;
+  static constexpr int kBarOff = (kRowOff + kRowTableBytes + 7) / 8 * 8;
   static constexpr int kBytes = kBarOff + 2 * kStages * 8;
-  static_assert(kBytes <= 232448, "shared memory of one thread block");
+  static_assert(kStages >= 4 || !F32, "four weight slots at f32");
+  static_assert(kBytes <= kSmemBudget, "shared memory of one thread block");
 };
 
-template <int SPAN, int STRIDE, int COUT>
-__global__ void __launch_bounds__(Layout<SPAN, COUT>::kThreads, 1)
-halo_conv_kernel(const __nv_bfloat16* __restrict__ feats,
+// the shared-memory row of halo position h: at f32 and STRIDE 2 rows h and
+// h + 2, which one 8-lane phase of a 16-byte load reads, fall in different
+// 64-byte halves of the 128 bytes of banks
+template <int STRIDE, bool F32>
+__device__ __forceinline__ int halo_row(int h) {
+  if constexpr (F32 && STRIDE == 2) {
+    return h ^ ((h >> 1) & 1);
+  } else {
+    return h;
+  }
+}
+
+template <int SPAN, int STRIDE, int COUT, bool F32>
+__global__ void __launch_bounds__(Layout<SPAN, COUT, F32>::kThreads, 1)
+halo_conv_kernel(const std::conditional_t<F32, float, __nv_bfloat16>* __restrict__ feats,
                  const int32_t* __restrict__ tbl,
                  const __nv_bfloat16* __restrict__ wp,
                  const uint8_t* __restrict__ mask, float* __restrict__ out,
                  int64_t nb, int64_t nsrc, int cin) {
-  using L = Layout<SPAN, COUT>;
+  using L = Layout<SPAN, COUT, F32>;
+  using Feat = std::conditional_t<F32, float, __nv_bfloat16>;
   constexpr int kSpan3 = L::kSpan3;
   constexpr int kBPW = L::kBPW;
+  constexpr int kPieces = F32 ? 4 : 2;  // 16-byte pieces of a halo row of one chunk
   extern __shared__ __align__(1024) unsigned char smem[];
   __shared__ int live_s[L::kBlocks];
   __shared__ int nbr_s[L::kBlocks][kTaps];
@@ -164,15 +212,15 @@ halo_conv_kernel(const __nv_bfloat16* __restrict__ feats,
 #pragma unroll
   for (int i = 0; i < L::kBlocks; ++i) any_live |= live_s[i] != 0;
 
-  if (g == kBPC) {  // producer: one thread streams the weight stages
+  if (g == kBPC) {  // producer: one thread streams the weight slots
     if (!any_live || tid % 32 != 0) return;
     for (int s = 0; s < steps; ++s) {
       const int slot = s % L::kStages;
       const int round = s / L::kStages;
       if (round > 0) mbar_wait(empty0 + 8 * slot, (round - 1) & 1);
-      mbar_arrive_expect_tx(full0 + 8 * slot, L::kStageBytes);
-      bulk_copy(smem_addr(smem + slot * L::kStageBytes),
-                wp + static_cast<int64_t>(s) * (L::kStageBytes / 2), L::kStageBytes,
+      mbar_arrive_expect_tx(full0 + 8 * slot, L::kSlotBytes);
+      bulk_copy(smem_addr(smem + slot * L::kSlotBytes),
+                wp + static_cast<int64_t>(s) * (L::kSlotBytes / 2), L::kSlotBytes,
                 full0 + 8 * slot);
     }
     return;
@@ -217,28 +265,36 @@ halo_conv_kernel(const __nv_bfloat16* __restrict__ feats,
   }
   named_barrier(bar_id, kWG);
 
-  // halo buffers of this warpgroup: [chunk parity][block]
-  __nv_bfloat16* halo_s =
-      reinterpret_cast<__nv_bfloat16*>(smem + L::kHaloOff) + g * kBPW * 2 * kSpan3 * kLDH;
+  // halo buffers of this warpgroup: [buffer][block]
+  unsigned char* halo_s = smem + L::kHaloOff + g * kBPW * L::kBufs * L::kHaloBytes;
+  auto halo_buf = [&](int chunk) {
+    return halo_s + (L::kBufs == 2 ? chunk & 1 : 0) * kBPW * L::kHaloBytes;
+  };
   auto load_halo = [&](int chunk) {
-    __nv_bfloat16* dst = halo_s + (chunk & 1) * kBPW * kSpan3 * kLDH;
-    for (int e = t; e < kBPW * kSpan3 * 2; e += kWG) {
-      const int p = e >> 1;  // block * kSpan3 + halo position
-      const int part = e & 1;
+    unsigned char* dst = halo_buf(chunk);
+    for (int e = t; e < kBPW * kSpan3 * kPieces; e += kWG) {
+      const int p = e / kPieces;  // block * kSpan3 + halo position
+      const int part = e % kPieces;
+      const int i = p / kSpan3;
       const int src = row_s[p];
-      const __nv_bfloat16* from =
-          src >= 0 ? feats + static_cast<int64_t>(src) * cin + chunk * kKC + part * 8 : feats;
-      cp_async_16(smem_addr(dst + p * kLDH + part * 8), from, src >= 0 ? 16 : 0);
+      const Feat* from = src >= 0 ? feats + static_cast<int64_t>(src) * cin + chunk * kKC +
+                                        part * (16 / static_cast<int>(sizeof(Feat)))
+                                  : feats;
+      const int row = i * kSpan3 + halo_row<STRIDE, F32>(p - i * kSpan3);
+      cp_async_16(smem_addr(dst + row * L::kRowBytes + part * 16), from, src >= 0 ? 16 : 0);
     }
     cp_async_commit();
   };
 
-  // this lane's A row: output cell warp*16 + r, r = uy*4 + uz, ux = warp;
-  // its halo position for tap (ox, oy, oz) is a_base + ox*SPAN^2 + oy*SPAN + oz
   const int warp = t / 32;
   const int lane = t % 32;
-  const int r = lane & 15;
-  const int half = lane >> 4;  // which 8 of the 16 channels
+  // bf16: this lane's ldmatrix row, output cell warp*16 + r, r = uy*4 + uz,
+  // ux = warp; its halo position for tap (ox, oy, oz) is a_base +
+  // ox*SPAN^2 + oy*SPAN + oz. f32: this lane's two A rows lane/4 and
+  // lane/4 + 8 (uy 2 further) and its four channels 4 (lane % 4) ..
+  // 4 (lane % 4) + 3 of the chunk (K indices 2q, 2q + 1, 8 + 2q, 9 + 2q)
+  const int r = F32 ? lane >> 2 : lane & 15;
+  const int half = lane >> 4;  // bf16: which 8 of the 16 channels
   const int a_base = STRIDE * (warp * SPAN * SPAN + (r >> 2) * SPAN + (r & 3));
 
   float acc[kBPW][COUT / 2];
@@ -251,31 +307,52 @@ halo_conv_kernel(const __nv_bfloat16* __restrict__ feats,
   const int chunks = cin / kKC;
   load_halo(0);
   for (int c = 0; c < chunks; ++c) {
-    if (c + 1 < chunks) {  // the next chunk's halo loads while this one's taps run
+    if (L::kBufs == 2 && c + 1 < chunks) {  // the next chunk's halo loads while this one's taps run
       load_halo(c + 1);
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     named_barrier(bar_id, kWG);  // chunk c's halo is in shared memory
-    const uint32_t a_addr =
-        smem_addr(halo_s + (c & 1) * kBPW * kSpan3 * kLDH + a_base * kLDH + half * 8);
-    uint32_t a[2][kBPW][4];
+    const unsigned char* buf = halo_buf(c);
+    uint32_t a[2][kBPW][4];               // A fragments (f32: the hi terms)
+    uint32_t a_lo[2][kBPW][F32 ? 4 : 1];  // f32: the lo terms
 #pragma unroll
     for (int tap = 0; tap < kTaps; ++tap) {
       const int s = c * kTaps + tap;
       const int slot = s % L::kStages;
-      const int off = ((tap / 9) * SPAN * SPAN + ((tap / 3) % 3) * SPAN + tap % 3) * kLDH * 2;
+      const int off = (tap / 9) * SPAN * SPAN + ((tap / 3) % 3) * SPAN + tap % 3;
 #pragma unroll
       for (int i = 0; i < kBPW; ++i) {
-        ldmatrix_x4(a_addr + i * kSpan3 * kLDH * 2 + off, a[tap & 1][i]);
+        const unsigned char* blk = buf + i * L::kHaloBytes;
+        if constexpr (F32) {
+          const int q = lane & 3;
+          const float4 x0 = *reinterpret_cast<const float4*>(
+              blk + halo_row<STRIDE, F32>(a_base + off) * L::kRowBytes + q * 16);
+          const float4 x1 = *reinterpret_cast<const float4*>(
+              blk + halo_row<STRIDE, F32>(a_base + 2 * STRIDE * SPAN + off) * L::kRowBytes + q * 16);
+          uint32_t(&h)[4] = a[tap & 1][i];
+          uint32_t(&l)[4] = a_lo[tap & 1][i];
+          split_bf16x2(x0.x, x0.y, h[0], l[0]);
+          split_bf16x2(x1.x, x1.y, h[1], l[1]);
+          split_bf16x2(x0.z, x0.w, h[2], l[2]);
+          split_bf16x2(x1.z, x1.w, h[3], l[3]);
+        } else {
+          ldmatrix_x4(smem_addr(blk + (a_base + off) * L::kRowBytes + half * 16), a[tap & 1][i]);
+        }
       }
       mbar_wait(full0 + 8 * slot, (s / L::kStages) & 1);
       __syncwarp();  // converged for the .aligned wgmma instructions
       wgmma_fence();
-      const uint32_t stage = smem_addr(smem + slot * L::kStageBytes);
+      const uint32_t stage = smem_addr(smem + slot * L::kSlotBytes);
 #pragma unroll
-      for (int i = 0; i < kBPW; ++i) wgmma_tile<COUT>(acc[i], a[tap & 1][i], stage);
+      for (int i = 0; i < kBPW; ++i) {
+        wgmma_tile<COUT>(acc[i], a[tap & 1][i], stage);
+        if constexpr (F32) {
+          wgmma_tile<COUT>(acc[i], a[tap & 1][i], stage + L::kStageBytes);  // Xh Wl
+          wgmma_tile<COUT>(acc[i], a_lo[tap & 1][i], stage);                 // Xl Wh
+        }
+      }
       wgmma_commit();
       if (tap > 0) {
         wgmma_wait<1>();  // the previous tap's products have read its stage and A
@@ -286,6 +363,7 @@ halo_conv_kernel(const __nv_bfloat16* __restrict__ feats,
     wgmma_wait<0>();
     if (lane == 0) mbar_arrive(empty0 + 8 * ((c * kTaps + kTaps - 1) % L::kStages));
     named_barrier(bar_id, kWG);  // every read of this halo buffer is done
+    if (L::kBufs == 1 && c + 1 < chunks) load_halo(c + 1);
   }
 
   const int cell_a = warp * 16 + (lane >> 2);
@@ -308,53 +386,55 @@ halo_conv_kernel(const __nv_bfloat16* __restrict__ feats,
   }
 }
 
-template <int SPAN, int STRIDE, int COUT>
+template <int SPAN, int STRIDE, int COUT, bool F32>
 int launch(const void* feats, const void* tbl, const void* wp, const void* mask, void* out,
            int64_t nb, int64_t nsrc, int cin, cudaStream_t stream) {
-  using L = Layout<SPAN, COUT>;
-  auto kernel = halo_conv_kernel<SPAN, STRIDE, COUT>;
+  using L = Layout<SPAN, COUT, F32>;
+  using Feat = std::conditional_t<F32, float, __nv_bfloat16>;
+  auto kernel = halo_conv_kernel<SPAN, STRIDE, COUT, F32>;
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::kBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned grid = static_cast<unsigned>((nb + L::kBlocks - 1) / L::kBlocks);
   kernel<<<grid, L::kThreads, L::kBytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(feats), static_cast<const int32_t*>(tbl),
+      static_cast<const Feat*>(feats), static_cast<const int32_t*>(tbl),
       static_cast<const __nv_bfloat16*>(wp), static_cast<const uint8_t*>(mask),
       static_cast<float*>(out), nb, nsrc, cin);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int SPAN, int STRIDE>
-int launch_cout(const void* feats, const void* tbl, const void* wp, const void* mask, void* out,
-                int64_t nb, int64_t nsrc, int cin, int cout, cudaStream_t stream) {
-  switch (cout) {
-    case 32: return launch<SPAN, STRIDE, 32>(feats, tbl, wp, mask, out, nb, nsrc, cin, stream);
-    case 64: return launch<SPAN, STRIDE, 64>(feats, tbl, wp, mask, out, nb, nsrc, cin, stream);
-    case 128: return launch<SPAN, STRIDE, 128>(feats, tbl, wp, mask, out, nb, nsrc, cin, stream);
-    default: return launch<SPAN, STRIDE, 256>(feats, tbl, wp, mask, out, nb, nsrc, cin, stream);
-  }
-}
-
-template <int SPAN, int COUT>
-void shape_of(int* bpc, int* stages) {
-  *bpc = Layout<SPAN, COUT>::kBlocks;
-  *stages = Layout<SPAN, COUT>::kStages;
-}
-
-template <int SPAN>
-void shape_of_cout(int cout, int* bpc, int* stages) {
-  switch (cout) {
-    case 32: return shape_of<SPAN, 32>(bpc, stages);
-    case 64: return shape_of<SPAN, 64>(bpc, stages);
-    case 128: return shape_of<SPAN, 128>(bpc, stages);
-    default: return shape_of<SPAN, 256>(bpc, stages);
-  }
-}
-
-bool takes(int span, int stride, int cin, int cout) {
+// calls f(Int<SPAN>, Int<STRIDE>, Int<COUT>) for a call the kernel takes;
+// false for the others
+template <typename F>
+bool dispatch(int span, int stride, int cin, int cout, F&& f) {
   const bool geometry = (span == 6 && stride == 1) || (span == 9 && stride == 2);
-  return geometry && cin > 0 && cin % kKC == 0 &&
-         (cout == 32 || cout == 64 || cout == 128 || cout == 256);
+  if (!geometry || cin <= 0 || cin % kKC != 0) return false;
+  auto by_cout = [&](auto sp, auto st) {
+    switch (cout) {
+      case 32: f(sp, st, Int<32>{}); return true;
+      case 64: f(sp, st, Int<64>{}); return true;
+      case 128: f(sp, st, Int<128>{}); return true;
+      case 256: f(sp, st, Int<256>{}); return true;
+      default: return false;
+    }
+  };
+  return span == 6 ? by_cout(Int<6>{}, Int<1>{}) : by_cout(Int<9>{}, Int<2>{});
+}
+
+template <bool F32>
+int run(const void* feats, const void* tbl, const void* wp, const void* mask, void* out,
+        int64_t nb, int64_t nsrc, int cin, int cout, int span, int stride, void* stream) {
+  if (nb < 0 || nsrc < 0 || nb > 0x7fffffff || nsrc * kCells > 0x7fffffff) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int rc = 0;
+  const bool ok = dispatch(span, stride, cin, cout, [&](auto sp, auto st, auto co) {
+    if (nb > 0) {
+      rc = launch<decltype(sp)::value, decltype(st)::value, decltype(co)::value, F32>(
+          feats, tbl, wp, mask, out, nb, nsrc, cin, static_cast<cudaStream_t>(stream));
+    }
+  });
+  return ok ? rc : static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -369,27 +449,39 @@ extern "C" {
 int halo_conv_bf16(const void* feats, const void* tbl, const void* wp, const void* mask,
                    void* out, int64_t nb, int64_t nsrc, int cin, int cout, int span,
                    int stride, void* stream) {
-  if (!takes(span, stride, cin, cout) || nb < 0 || nsrc < 0 || nb > 0x7fffffff ||
-      nsrc * kCells > 0x7fffffff) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (nb == 0) return 0;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (stride == 1) return launch_cout<6, 1>(feats, tbl, wp, mask, out, nb, nsrc, cin, cout, s);
-  return launch_cout<9, 2>(feats, tbl, wp, mask, out, nb, nsrc, cin, cout, s);
+  return run<false>(feats, tbl, wp, mask, out, nb, nsrc, cin, cout, span, stride, stream);
 }
 
-// The launch shape for a call: output blocks per thread block and weight
-// stages in the ring. Returns cudaErrorInvalidValue for arguments the
-// kernel does not take.
-int halo_conv_launch_shape(int span, int stride, int cin, int cout, int* bpc, int* stages) {
-  if (!takes(span, stride, cin, cout)) return static_cast<int>(cudaErrorInvalidValue);
-  if (span == 6) {
-    shape_of_cout<6>(cout, bpc, stages);
-  } else {
-    shape_of_cout<9>(cout, bpc, stages);
-  }
-  return 0;
+// The f32 entry (the header's last paragraph): feats (Nsrc * 64, Cin) f32,
+// wp the [Wh ; Wl] slots of the split f32 weights; otherwise as
+// halo_conv_bf16.
+int halo_conv_f32(const void* feats, const void* tbl, const void* wp, const void* mask, void* out,
+                  int64_t nb, int64_t nsrc, int cin, int cout, int span, int stride,
+                  void* stream) {
+  return run<true>(feats, tbl, wp, mask, out, nb, nsrc, cin, cout, span, stride, stream);
+}
+
+// The launch shape for a call of the bf16 (f32 = 0) or the f32 entry:
+// output blocks per thread block, weight slots in the ring, halo buffers a
+// block, and dynamic shared memory bytes. Returns cudaErrorInvalidValue for
+// arguments the kernel does not take.
+int halo_conv_launch_shape(int span, int stride, int cin, int cout, int f32, int* bpc,
+                           int* stages, int* bufs, int* smem_bytes) {
+  const bool ok = dispatch(span, stride, cin, cout, [&](auto sp, auto, auto co) {
+    auto fill = [&](auto layout) {
+      using L = decltype(layout);
+      *bpc = L::kBlocks;
+      *stages = L::kStages;
+      *bufs = L::kBufs;
+      *smem_bytes = L::kBytes;
+    };
+    if (f32) {
+      fill(Layout<decltype(sp)::value, decltype(co)::value, true>{});
+    } else {
+      fill(Layout<decltype(sp)::value, decltype(co)::value, false>{});
+    }
+  });
+  return ok ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // extern "C"

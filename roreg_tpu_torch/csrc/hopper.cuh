@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the port's tensor-core kernels:
 // shared-memory addresses and named barriers, mbarriers, the bulk-copy
 // engine, 16-byte cp.async, ldmatrix (plain and transposed), vector f32
-// reductions in global memory, the split of f32 values into three bf16
-// terms, and wgmma.mma_async (bf16 in, f32 accumulators in registers) with
+// reductions in global memory, the split of f32 values into two or three
+// bf16 terms, and wgmma.mma_async (bf16 in, f32 accumulators in registers) with
 // A from registers or from a shared-memory descriptor and B from a
 // shared-memory descriptor.
 //
@@ -153,6 +153,20 @@ __device__ __forceinline__ void split8_bf16x3(const float (&v)[8], uint4 (&out)[
   }
 #pragma unroll
   for (int t = 0; t < 3; ++t) out[t] = make_uint4(w[t][0], w[t][1], w[t][2], w[t][3]);
+}
+
+// a, b -> their two bf16 terms as bf16x2 words (a in the low half): hi =
+// bf16(v), lo = bf16(v - hi), the difference exact in f32, so hi + lo
+// leaves about 2^-17 of v (kernels/split.py split_bf16x2)
+__device__ __forceinline__ void split_bf16x2(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat16 ha = __float2bfloat16_rn(a);
+  const __nv_bfloat16 hb = __float2bfloat16_rn(b);
+  const __nv_bfloat16 la = __float2bfloat16_rn(a - __bfloat162float(ha));
+  const __nv_bfloat16 lb = __float2bfloat16_rn(b - __bfloat162float(hb));
+  hi = static_cast<uint32_t>(__bfloat16_as_ushort(ha)) |
+       (static_cast<uint32_t>(__bfloat16_as_ushort(hb)) << 16);
+  lo = static_cast<uint32_t>(__bfloat16_as_ushort(la)) |
+       (static_cast<uint32_t>(__bfloat16_as_ushort(lb)) << 16);
 }
 
 __device__ __forceinline__ void wgmma_fence() {

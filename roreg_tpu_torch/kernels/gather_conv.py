@@ -15,9 +15,10 @@ versions (autograd through :func:`gather_conv_plain`) on the CPU; the
 gathered ``(M, K, Cin)`` matrix is never saved. The kernels are built with
 ``nvcc`` into the port's build directory at first use and bound with
 ``ctypes``. Operands are bf16 or f32: f32 ones run as two bf16 terms each
-(``kernels/split.py``): the forward as one launch over the stacked
-operands at three times Cin, dgrad and wgrad as one launch per term of
-the operand they read as bf16.
+(``kernels/split.py``): the forward through the kernel's f32 entry, which
+reads each gathered f32 row once and splits it on chip (the weights come
+split and packed by :func:`pack_split_weights`),
+dgrad and wgrad as one launch per term of the operand they read as bf16.
 """
 
 from __future__ import annotations
@@ -28,7 +29,7 @@ import torch
 
 from roreg_tpu_torch.build import CudaKernel
 from roreg_tpu_torch.kernels.halo_conv import pack_weights
-from roreg_tpu_torch.kernels.split import split_bf16x2, stack_terms
+from roreg_tpu_torch.kernels.split import split_bf16x2
 
 __all__ = [
     "gather_conv",
@@ -45,6 +46,7 @@ __all__ = [
     "bwd_work",
     "bwd_kernel_widths",
     "pack_dgrad_weights",
+    "pack_split_weights",
     "split_bf16x3",
     "DGRAD_CINS",
     "DGRAD_CI_TILE",
@@ -82,6 +84,18 @@ def _check_widths(cin: int, cout: int, k: int) -> None:
         )
 
 
+def pack_split_weights(weights: torch.Tensor) -> torch.Tensor:
+    """(K, Cin, Cout) f32 -> the f32 entry's weight slots: the two bf16
+    terms ``Wh, Wl`` of ``split_bf16x2(weights)``, tap-major stages as
+    :func:`~roreg_tpu_torch.kernels.halo_conv.pack_weights` lays them out,
+    (K, Cin/32, 2, 2, Cout/8, 2, 8, 8): Wh's two 16-channel stages of an
+    (offset, 32-channel step), then Wl's, in one copy."""
+    k, cin, cout = weights.shape
+    terms = torch.stack(split_bf16x2(weights))  # (2, K, Cin, Cout)
+    # (term, tap, step, half, k / 8, k % 8, n / 8, n % 8) -> (tap, step, term, half, n / 8, k / 8, n % 8, k % 8)
+    return terms.view(2, k, cin // 32, 2, 2, 8, cout // 8, 8).permute(1, 2, 0, 3, 6, 4, 7, 5).contiguous()
+
+
 class GatherConvKernel(CudaKernel):
     """The CUDA kernel's wrapper: builds and loads the library, checks its
     arguments, packs the weights, launches on the current stream, and
@@ -91,30 +105,41 @@ class GatherConvKernel(CudaKernel):
 
     def _bind(self, lib: ctypes.CDLL) -> None:
         vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.gather_conv_bf16.restype = ci
-        lib.gather_conv_bf16.argtypes = [vp, vp, vp, vp, i64, i64, ci, ci, ci, vp]
+        for entry in (lib.gather_conv_bf16, lib.gather_conv_f32):
+            entry.restype = ci
+            entry.argtypes = [vp, vp, vp, vp, i64, i64, ci, ci, ci, vp]
         lib.gather_conv_launch_shape.restype = ci
         pi = ctypes.POINTER(ci)
-        lib.gather_conv_launch_shape.argtypes = [i64, ci, ci, ci, pi, pi, pi, pi]
+        lib.gather_conv_launch_shape.argtypes = [i64, ci, ci, ci, ci, pi, pi, pi, pi, pi]
 
-    def launch_shape(self, m: int, cin: int, cout: int, k: int) -> dict:
-        """The kernel's launch shape for an (m, k) table at these widths:
-        output rows per tile, input channels per step, slots of its ring,
-        and thread blocks per tile (the cluster split of the tile's
-        offsets)."""
+    def launch_shape(self, m: int, cin: int, cout: int, k: int, f32: bool = False) -> dict:
+        """The launch shape of the bf16 or the f32 entry for an (m, k)
+        table at these widths: output rows per tile, input channels per
+        step, slots of its ring, thread blocks per tile (the cluster split
+        of the tile's offsets), and dynamic shared memory bytes."""
         _check_widths(cin, cout, k)
-        rows, channels, stages, split = (ctypes.c_int() for _ in range(4))
-        rc = self._load().gather_conv_launch_shape(m, cin, cout, k, rows, channels, stages, split)
+        rows, channels, stages, split, smem = (ctypes.c_int() for _ in range(5))
+        rc = self._load().gather_conv_launch_shape(m, cin, cout, k, int(f32), rows, channels, stages,
+                                                   split, smem)
         self.check_rc("gather_conv", rc)
         return {"rows_per_cta": rows.value, "channels_per_step": channels.value,
-                "stages": stages.value, "cluster_split": split.value}
+                "stages": stages.value, "cluster_split": split.value, "smem_bytes": smem.value}
+
+    @staticmethod
+    def operands(feats: torch.Tensor, weights: torch.Tensor) -> tuple[str, torch.Tensor]:
+        """The C entry for these operand types and its packed weights: bf16
+        operands -> ``gather_conv_bf16`` and tap-major :func:`pack_weights`;
+        f32 -> ``gather_conv_f32`` and :func:`pack_split_weights`'s slots
+        of 32 channels a step. The features go to the kernel as they are."""
+        if feats.dtype == torch.float32:
+            return "gather_conv_f32", pack_split_weights(weights)
+        return "gather_conv_bf16", pack_weights(weights, tap_major=True)
 
     def __call__(
         self, feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor
     ) -> torch.Tensor:
         """feats (N, Cin) and weights (K, Cin, Cout), both bf16 or both f32
-        (one launch over the stacked split operands at 3 Cin), nbr (M, K)
-        int32 -> (M, Cout) f32."""
+        (the f32 entry), nbr (M, K) int32 -> (M, Cout) f32."""
         f32 = feats.dtype == weights.dtype == torch.float32
         if not f32 and (feats.dtype != torch.bfloat16 or weights.dtype != torch.bfloat16):
             raise TypeError(
@@ -138,17 +163,14 @@ class GatherConvKernel(CudaKernel):
         for name, t in (("feats", feats), ("nbr", nbr), ("weights", weights)):
             if not t.is_contiguous():
                 raise ValueError(f"gather_conv kernel: {name} must be contiguous")
-        if not f32 and feats.data_ptr() % 16:  # f32 operands are split into new tensors
+        if feats.data_ptr() % 16:
             raise ValueError("gather_conv kernel: feats must be 16-byte aligned")
         lib = self._load()
         out = torch.empty((m, cout), dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            if f32:
-                feats, weights = stack_terms(feats, weights)
-                c *= 3
-            wp = pack_weights(weights, tap_major=True)
-            rc = lib.gather_conv_bf16(
+            entry, wp = self.operands(feats, weights)
+            rc = getattr(lib, entry)(
                 feats.data_ptr(), nbr.data_ptr(), wp.data_ptr(), out.data_ptr(),
                 m, n, c, cout, k, stream,
             )

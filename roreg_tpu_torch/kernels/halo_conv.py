@@ -13,9 +13,10 @@ stands in for.
 
 :func:`halo_conv` runs the plain PyTorch version for tensors on the CPU and
 the CUDA kernel of ``csrc/halo_conv.cu`` for tensors on the GPU; on a GPU
-it launches the kernel or raises. Operands are bf16, or f32, which run as
-one launch over the stacked two-term split operands at three times Cin
-(``kernels/split.py``).
+it launches the kernel or raises. Operands are bf16 (the kernel's bf16
+entry), or f32 (its f32 entry: each f32 feature row is read once and split
+into two bf16 terms on chip; the weights come split and packed as
+:func:`pack_split_weights` lays them out, ``kernels/split.py``).
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ import numpy as np
 import torch
 
 from roreg_tpu_torch.build import CudaKernel
-from roreg_tpu_torch.kernels.split import stack_terms
+from roreg_tpu_torch.kernels.split import split_bf16x2
 
 __all__ = [
     "BLOCK",
@@ -38,6 +39,8 @@ __all__ = [
     "halo_conv_kernel",
     "halo_work",
     "pack_weights",
+    "pack_split_weights",
+    "F32_K_ORDER",
 ]
 
 BLOCK = 4  # cells per axis; 64 cells per block
@@ -138,6 +141,27 @@ def pack_weights(w: torch.Tensor, tap_major: bool = False) -> torch.Tensor:
     return w.view(k, cin // 16, 2, 8, cout // 8, 8).permute(*order).contiguous()
 
 
+# the f32 entry's K order: K index k of a 16-channel weight stage holds
+# input channel F32_K_ORDER[k] of the chunk, so that the four channels of a
+# lane's A fragment (K 2q, 2q + 1, 8 + 2q, 9 + 2q) are the adjacent 4q ..
+# 4q + 3 of an f32 halo row, one 16-byte load (csrc/halo_conv.cu)
+F32_K_ORDER = (0, 1, 4, 5, 8, 9, 12, 13, 2, 3, 6, 7, 10, 11, 14, 15)
+
+
+def pack_split_weights(w: torch.Tensor) -> torch.Tensor:
+    """(K, Cin, Cout) f32 -> the f32 entry's weight slots: the two bf16
+    terms ``Wh, Wl`` of ``split_bf16x2(w)``, chunk-major as
+    :func:`pack_weights` lays them out, (Cin/16, K, 2, Cout/8, 2, 8, 8):
+    [Wh ; Wl] of one (chunk, tap) side by side, K index k of a stage
+    holding channel ``F32_K_ORDER[k]`` of the chunk, in one copy."""
+    k, cin, cout = w.shape
+    terms = torch.stack(split_bf16x2(w))  # (2, K, Cin, Cout)
+    # channel 16c + 4q + 2a + e at K index 8a + 2q + e (F32_K_ORDER):
+    # (term, tap, c, q, a, e, n / 8, n % 8) -> (c, tap, term, n / 8, a, n % 8, q, e)
+    slots = terms.view(2, k, cin // 16, 4, 2, 2, cout // 8, 8).permute(2, 1, 0, 6, 4, 7, 3, 5)
+    return slots.contiguous().view(cin // 16, k, 2, cout // 8, 2, 8, 8)
+
+
 class HaloConvKernel(CudaKernel):
     """The CUDA kernel's wrapper: checks its arguments, launches on the
     current stream, counts launches in ``launches``."""
@@ -146,18 +170,32 @@ class HaloConvKernel(CudaKernel):
 
     def _bind(self, lib: ctypes.CDLL) -> None:
         vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.halo_conv_bf16.restype = ci
-        lib.halo_conv_bf16.argtypes = [vp, vp, vp, vp, vp, i64, i64, ci, ci, ci, ci, vp]
+        for entry in (lib.halo_conv_bf16, lib.halo_conv_f32):
+            entry.restype = ci
+            entry.argtypes = [vp, vp, vp, vp, vp, i64, i64, ci, ci, ci, ci, vp]
+        pi = ctypes.POINTER(ci)
         lib.halo_conv_launch_shape.restype = ci
-        lib.halo_conv_launch_shape.argtypes = [ci, ci, ci, ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
+        lib.halo_conv_launch_shape.argtypes = [ci, ci, ci, ci, ci, pi, pi, pi, pi]
 
-    def launch_shape(self, cin: int, cout: int, span: int, stride: int) -> dict:
-        """The kernel's launch shape for these widths: output blocks per
-        thread block and the weight stages of its ring."""
-        bpc, stages = ctypes.c_int(), ctypes.c_int()
-        rc = self._load().halo_conv_launch_shape(span, stride, cin, cout, bpc, stages)
+    def launch_shape(self, cin: int, cout: int, span: int, stride: int, f32: bool = False) -> dict:
+        """The launch shape of the bf16 or the f32 entry for these widths:
+        output blocks per thread block, the weight slots of its ring, the
+        halo buffers of a block, and the dynamic shared memory bytes."""
+        bpc, stages, bufs, smem = (ctypes.c_int() for _ in range(4))
+        rc = self._load().halo_conv_launch_shape(span, stride, cin, cout, int(f32), bpc, stages, bufs, smem)
         self.check_rc("halo_conv", rc)
-        return {"blocks_per_cta": bpc.value, "stages": stages.value}
+        return {"blocks_per_cta": bpc.value, "stages": stages.value, "halo_buffers": bufs.value,
+                "smem_bytes": smem.value}
+
+    @staticmethod
+    def operands(feats: torch.Tensor, w: torch.Tensor) -> tuple[str, torch.Tensor]:
+        """The C entry for these operand types and its packed weights: bf16
+        operands -> ``halo_conv_bf16`` and :func:`pack_weights`; f32 ->
+        ``halo_conv_f32`` and :func:`pack_split_weights`'s slots (K rows in
+        ``F32_K_ORDER``). The features go to the kernel as they are."""
+        if feats.dtype == torch.float32:
+            return "halo_conv_f32", pack_split_weights(w)
+        return "halo_conv_bf16", pack_weights(w)
 
     def __call__(
         self, feats: torch.Tensor, tbl: torch.Tensor, w: torch.Tensor, cell_mask: torch.Tensor,
@@ -198,17 +236,14 @@ class HaloConvKernel(CudaKernel):
         for name, t in (("feats", feats), ("tbl", tbl), ("w", w), ("cell_mask", cell_mask)):
             if not t.is_contiguous():
                 raise ValueError(f"halo_conv kernel: {name} must be contiguous")
-        if not f32 and feats.data_ptr() % 16:  # f32 operands are split into new tensors
+        if feats.data_ptr() % 16:
             raise ValueError("halo_conv kernel: feats must be 16-byte aligned")
         lib = self._load()
         out = torch.empty((b, CELLS, cout), dtype=torch.float32, device=dev)
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
-            if f32:
-                feats, w = stack_terms(feats, w)
-                cin *= 3
-            wp = pack_weights(w)
-            rc = lib.halo_conv_bf16(
+            entry, wp = self.operands(feats, w)
+            rc = getattr(lib, entry)(
                 feats.data_ptr(), tbl.data_ptr(), wp.data_ptr(),
                 cell_mask.data_ptr(), out.data_ptr(), b, nsrc, cin, cout, span, stride, stream,
             )

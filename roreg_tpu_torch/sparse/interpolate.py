@@ -14,7 +14,7 @@ from __future__ import annotations
 import torch
 
 from roreg_tpu_torch.sparse.kernel_map import lookup, pack_keys
-from roreg_tpu_torch.sparse.voxelize import AXIS_BITS, SENTINEL
+from roreg_tpu_torch.sparse.voxelize import AXIS_BITS, SENTINEL, exact_divisor
 
 __all__ = ["interpolate"]
 
@@ -27,7 +27,7 @@ def interpolate(keys: torch.Tensor, feats: torch.Tensor, origin: torch.Tensor,
     origin (3,) int32, the shift applied at voxelisation (stored coords =
     floor(p / vs) - origin); queries (Q, 3) world points -> (Q, C), zero
     where every corner is absent."""
-    g = queries / voxel_size - origin.to(queries.dtype)
+    g = queries / exact_divisor(voxel_size, queries.device, queries.dtype) - origin.to(queries.dtype)
     base = torch.floor(g)
     frac = g - base
     base = base.to(torch.int32)

@@ -8,11 +8,13 @@ tensors on the points' device (the device-built pyramids,
 voxel_size)``, coordinates shifted by the masked minimum, packed into
 sortable int32 keys, compacted in key order into ``capacity`` rows.
 
-On a CUDA tensor PyTorch divides by a Python number as a product with its
-f32 reciprocal, so there a point one ulp from a voxel face takes the
-voxel ``floor(p * (1 / voxel_size))``, as the host builder
-(``native/voxelhash.cpp``) quantizes; on the CPU the division is exact,
-as the reference's.
+The division is exact on every device, as the reference's: the divisor is
+a 0-dim f32 tensor on the points' device, because PyTorch's CUDA kernel
+turns a division by a Python number (a CPU scalar) into a product with
+its f32 reciprocal, which puts a point one ulp from a voxel face into the
+voxel ``floor(p * (1 / voxel_size))``. That is how the host builder
+(``native/voxelhash.cpp``) quantizes, so where such a point exists the
+device build follows the reference and not the host builder.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-__all__ = ["VoxelGrid", "SENTINEL", "AXIS_BITS", "pack_keys", "unpack_keys", "voxelize"]
+__all__ = ["VoxelGrid", "SENTINEL", "AXIS_BITS", "exact_divisor", "pack_keys", "unpack_keys", "voxelize"]
 
 AXIS_BITS = 10  # 1024 voxels per axis
 _EXTENT = 1 << AXIS_BITS
@@ -62,6 +64,13 @@ class VoxelGrid(NamedTuple):
     num_dropped: np.ndarray
 
 
+def exact_divisor(value: float, device: torch.device, dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """``value`` as a 0-dim tensor on ``device``: dividing by it is an
+    exact division on the CPU and on CUDA alike (a Python-number divisor
+    becomes a product with its reciprocal on CUDA)."""
+    return torch.tensor(value, dtype=dtype, device=device)
+
+
 def _first_of_runs(sorted_keys: torch.Tensor) -> torch.Tensor:
     """Where a valid key differs from its predecessor in a sorted key list."""
     new = torch.ones_like(sorted_keys, dtype=torch.bool)
@@ -80,7 +89,7 @@ def voxelize(points: torch.Tensor, point_mask: torch.Tensor, voxel_size: float, 
     n = points.shape[0]
     dev = points.device
     i32 = dict(dtype=torch.int32, device=dev)
-    vcoords = torch.floor(points.float() / voxel_size).to(torch.int32)
+    vcoords = torch.floor(points.float() / exact_divisor(voxel_size, dev)).to(torch.int32)
     big = torch.tensor(2**30, **i32)
     origin = torch.where(point_mask[:, None], vcoords, big).amin(0)
     origin = torch.where(origin == big, torch.zeros_like(origin), origin)  # empty cloud guard

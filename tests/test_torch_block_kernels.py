@@ -21,13 +21,16 @@ from roreg_tpu_torch.kernels.block_gather import (  # noqa: E402
     gather_work,
 )
 from roreg_tpu_torch.kernels.halo_conv import (  # noqa: E402
+    F32_K_ORDER,
     halo_conv,
     halo_conv_kernel,
     halo_conv_plain,
     halo_maps,
     halo_work,
+    pack_split_weights,
     pack_weights,
 )
+from roreg_tpu_torch.kernels.split import split_bf16x2  # noqa: E402
 
 # bf16 products are exact in f32; kernel and plain version differ only by
 # the order of the f32 sums (27 * Cin terms)
@@ -140,6 +143,29 @@ def test_pack_weights_is_wgmma_k_major_layout(cin, cout):
     assert torch.equal(flat[torch.from_numpy(where.reshape(-1))],
                        w[torch.from_numpy(tap.reshape(-1)), torch.from_numpy((16 * c + k).reshape(-1)),
                          torch.from_numpy(n.reshape(-1))])
+
+
+# (Cin, Cout) of the block engine's halo convs, and odd widths
+@pytest.mark.parametrize("cin,cout", [(32, 32), (32, 64), (64, 64), (64, 128), (128, 128), (128, 256),
+                                      (256, 256), (16, 32), (48, 64), (64, 256)])
+def test_split_weights_sit_where_the_f32_entry_reads_them(cin, cout):
+    """The f32 entry's producer copies slot s = 27 c + tap (chunk c, tap)
+    from 32 * Cout * s elements of the packed weights, its Wl stage 16 *
+    Cout elements after its Wh stage; element (k, n) of term t's stage is
+    term t of w[tap, 16c + F32_K_ORDER[k], n] at the stage's K-major
+    offset (csrc/halo_conv.cu)."""
+    w = torch.from_numpy(np.random.default_rng(cin).normal(size=(27, cin, cout)).astype(np.float32))
+    terms = split_bf16x2(w)
+    flat = pack_split_weights(w).reshape(-1)
+    assert flat.numel() == 2 * w.numel()
+    c, tap, t, k, n = np.meshgrid(np.arange(cin // 16), np.arange(27), np.arange(2), np.arange(16),
+                                  np.arange(cout), indexing="ij")
+    elem = (n // 8) * 128 + (k // 8) * 64 + (n % 8) * 8 + k % 8
+    where = (c * 27 + tap) * 32 * cout + t * 16 * cout + elem
+    chan = 16 * c + np.asarray(F32_K_ORDER)[k]
+    want = torch.stack(terms)[torch.from_numpy(t.reshape(-1)), torch.from_numpy(tap.reshape(-1)),
+                              torch.from_numpy(chan.reshape(-1)), torch.from_numpy(n.reshape(-1))]
+    assert torch.equal(flat[torch.from_numpy(where.reshape(-1))], want)
 
 
 @pytest.mark.parametrize("kernel", ["block_gather", "halo_conv"])
@@ -288,8 +314,9 @@ def _f32_err(out: torch.Tensor, ref: torch.Tensor) -> float:
 @pytest.mark.parametrize("span,stride", [(6, 1), (9, 2)])
 @pytest.mark.parametrize("cin,cout", [(32, 64), (64, 128), (256, 256)])
 def test_halo_conv_kernel_f32_on_gpu(exact_f32, span, stride, cin, cout):
-    """f32 features and weights: one launch over the stacked split operands
-    at 3 Cin, within ``F32_RTOL`` of the f32 plain version; masked cells 0."""
+    """f32 features and weights: one launch of the f32 entry (each halo row
+    split on chip, three products a tap), within ``F32_RTOL`` of the f32
+    plain version; masked cells 0."""
     dev = exact_f32
     rng = np.random.default_rng(cin + cout + span + 1)
     nsrc, b = 700, 613
@@ -340,3 +367,36 @@ def test_up_conv_kernel_f32_on_gpu(exact_f32, blocks, cin, cout):
     assert _f32_err(out, ref) <= F32_RTOL
     assert _f32_err(up_conv_plain(reg.bfloat16(), w.bfloat16(), mask), ref) > 10 * F32_RTOL
     assert bool((out[~mask] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("span,stride", [(6, 1), (9, 2)])
+@pytest.mark.parametrize("cin,cout", [(16, 32), (48, 64), (32, 128), (64, 256)])
+def test_halo_conv_kernel_f32_dead_runs_on_gpu(exact_f32, span, stride, cin, cout):
+    """The f32 entry on runs of live and dead blocks (as the bf16 test),
+    Cout 32 to 256, within ``F32_RTOL``; the launch shapes of both entries."""
+    dev = exact_f32
+    rng = np.random.default_rng(cin * cout + span + 7)
+    nsrc, b = 300, 3 * 67
+    tbl, mask = _blocks(rng, b, nsrc, absent=0.5)
+    mask[:, 0] = True
+    mask[40:70] = False
+    mask[71] = False
+    mask[130:] = False
+    tbl = torch.from_numpy(tbl).to(dev)
+    mask = torch.from_numpy(mask).to(dev)
+    feats = torch.randn(nsrc, 64, cin, device=dev)
+    w = torch.randn(27, cin, cout, device=dev) * (2 / (27 * cin)) ** 0.5
+    out = halo_conv(feats, tbl, w, mask, span, stride)
+    torch.cuda.synchronize()
+    ref = halo_conv_plain(feats, tbl, w, mask, span, stride)
+    assert _f32_err(out, ref) <= F32_RTOL
+    assert bool((out[~mask] == 0).all())
+    # the launch shapes the kernel reports (csrc/halo_conv.cu's Layout): the
+    # f32 entry keeps the bf16 entry's blocks a thread block and at least
+    # four weight slots, and double-buffers its halo but at SPAN 9 and Cout
+    # 256; both within an SM's 227 KB of shared memory
+    bf16, f32 = (halo_conv_kernel.launch_shape(cin, cout, span, stride, f32) for f32 in (False, True))
+    assert bf16["blocks_per_cta"] == f32["blocks_per_cta"] == (4 if span == 6 and cout <= 64 else 2)
+    assert bf16["halo_buffers"] == 2 and f32["halo_buffers"] == (1 if (span, cout) == (9, 256) else 2)
+    assert f32["stages"] >= 4 and max(bf16["smem_bytes"], f32["smem_bytes"]) <= 232448 - 1024

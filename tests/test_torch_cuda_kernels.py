@@ -23,8 +23,14 @@ from roreg_tpu_torch.kernels.cell_dense import (  # noqa: E402
     cell_dense_plain,
     dense_work,
 )
-from roreg_tpu_torch.kernels.gather_conv import gather_conv, gather_conv_kernel, gather_conv_plain  # noqa: E402
+from roreg_tpu_torch.kernels.gather_conv import (  # noqa: E402
+    gather_conv,
+    gather_conv_kernel,
+    gather_conv_plain,
+    pack_split_weights,
+)
 from roreg_tpu_torch.kernels.halo_conv import pack_weights  # noqa: E402
+from roreg_tpu_torch.kernels.split import split_bf16x2  # noqa: E402
 from roreg_tpu_torch.kernels.skip_concat import (  # noqa: E402
     concat_work,
     skip_concat,
@@ -138,6 +144,26 @@ def test_gather_conv_weights_sit_where_the_kernel_reads_them(cin, cout, kvol):
     assert torch.equal(flat[torch.from_numpy(where.reshape(-1))],
                        w[torch.from_numpy(k.reshape(-1)), torch.from_numpy((32 * c + 16 * h + kk).reshape(-1)),
                          torch.from_numpy(n.reshape(-1))])
+
+
+@pytest.mark.parametrize("cin,cout", sorted(set(GATHER_WIDTHS)))
+def test_gather_conv_split_weights_sit_where_the_f32_entry_reads_them(cin, cout):
+    """The f32 entry's producer copies the weights of step (offset k,
+    32-channel chunk c) from (k * Cin/32 + c) * 64 * Cout elements of the
+    packed weights: Wh's two 16-row stages, then Wl's, 16 * Cout elements
+    each; element (k', n) of half h of term t is term t of w[k, 32c + 16h
+    + k', n] (csrc/gather_conv.cu)."""
+    kvol = 27
+    w = torch.from_numpy(np.random.default_rng(cin).normal(size=(kvol, cin, cout)).astype(np.float32))
+    flat = pack_split_weights(w).reshape(-1)
+    assert flat.numel() == 2 * w.numel()
+    k, c, t, h, kk, n = np.meshgrid(np.arange(kvol), np.arange(cin // 32), np.arange(2), np.arange(2),
+                                    np.arange(16), np.arange(cout), indexing="ij")
+    where = ((k * (cin // 32) + c) * 4 + t * 2 + h) * 16 * cout + _stage_element(kk, n)
+    want = torch.stack(split_bf16x2(w))[torch.from_numpy(t.reshape(-1)), torch.from_numpy(k.reshape(-1)),
+                                        torch.from_numpy((32 * c + 16 * h + kk).reshape(-1)),
+                                        torch.from_numpy(n.reshape(-1))]
+    assert torch.equal(flat[torch.from_numpy(where.reshape(-1))], want)
 
 
 @pytest.mark.parametrize("cin,cout", [(48, 64), (512, 64), (128, 256), (128, 96), (16, 32)])
@@ -775,8 +801,9 @@ def _f32_err(out: torch.Tensor, ref: torch.Tensor) -> float:
 @pytest.mark.parametrize("cin,cout,kvol,launches", [(32, 32, 27, 1), (256, 256, 27, 1), (64, 64, 40, 2)])
 def test_gather_conv_kernel_f32_on_gpu(exact_f32, cin, cout, kvol, launches):
     """f32 features and weights, narrow, wide and with more offsets than one
-    launch takes: one launch per 32 offsets over the stacked split operands
-    at 3 Cin, within ``F32_RTOL`` of the f32 plain version, bit-equal twice."""
+    launch takes: one launch of the f32 entry per 32 offsets (each gathered
+    row split on chip, three products a step), within ``F32_RTOL`` of the
+    f32 plain version, bit-equal twice; the launch shapes of both entries."""
     dev = exact_f32
     rng = np.random.default_rng(cin + cout + kvol)
     n, m = 2500, 64 * 9 + 37
@@ -794,6 +821,15 @@ def test_gather_conv_kernel_f32_on_gpu(exact_f32, cin, cout, kvol, launches):
     assert _f32_err(gather_conv_plain(feats.bfloat16(), nbr, w.bfloat16()), ref) > 10 * F32_RTOL
     assert torch.equal(out, again)
     assert not bool(out[64:192].any())
+    # the launch shapes the kernel reports (csrc/gather_conv.cu's Layout): at
+    # least three slots, two steps gathered ahead of the one multiplied;
+    # within 100 KB and its barriers, two thread blocks an SM, but the f32
+    # entry at Cout 256
+    for f32 in (False, True):
+        shape = gather_conv_kernel.launch_shape(m, cin, cout, min(kvol, 32), f32)
+        assert shape["rows_per_cta"] == 64 and shape["stages"] >= 3
+        assert shape["channels_per_step"] == (64 if not f32 and cin % 64 == 0 and cout == 128 else 32)
+        assert shape["smem_bytes"] <= 102400 + 16 * shape["stages"] or (f32 and cout == 256)
 
 
 @pytest.mark.cuda
@@ -823,3 +859,30 @@ def test_gather_conv_bwd_kernels_f32_on_gpu(exact_f32, cin, cout, kvol):
     assert dx.shape == feats.shape and dw.shape == w.shape
     assert _f32_err(dx, gather_conv_dgrad_plain(feats, nbr, w, dy)) <= F32_RTOL
     assert _f32_err(dw, gather_conv_wgrad_plain(feats, nbr, w, dy)) <= F32_RTOL
+
+
+@pytest.mark.cuda
+def test_voxelize_divides_exactly_on_gpu(cuda_device):
+    """Points one ulp from voxel faces (k * vs in f32, k != 0), where
+    ``floor(p / vs)`` and ``floor(p * (1 / vs))`` differ for some:
+    ``voxelize`` on the card gives every leaf that it gives on the CPU, an
+    exact f32 division on both as in the JAX package, while a division by
+    the Python number on the card (a product with the reciprocal) puts
+    some of them into other voxels."""
+    from roreg_tpu_torch.sparse.voxelize import voxelize
+
+    rng = np.random.default_rng(5)
+    vs = 0.05
+    k = rng.integers(1, 200, size=(6000, 3)) * rng.choice([-1, 1], size=(6000, 3))
+    faces = k.astype(np.float32) * np.float32(vs)
+    side = rng.integers(-1, 2, size=faces.shape)
+    pts = np.where(side < 0, np.nextafter(faces, np.float32(-np.inf)),
+                   np.where(side > 0, np.nextafter(faces, np.float32(np.inf)), faces)).astype(np.float32)
+    assert (np.floor(pts / np.float32(vs)) != np.floor(pts * (np.float32(1) / np.float32(vs)))).any()
+    p_cpu, mask = torch.from_numpy(pts), torch.ones(len(pts), dtype=torch.bool)
+    p_gpu = p_cpu.to(cuda_device)
+    assert bool((torch.floor(p_gpu / vs).cpu() != torch.floor(p_cpu / vs)).any())
+    cpu = voxelize(p_cpu, mask, vs, 16384)
+    gpu = voxelize(p_gpu, mask.to(cuda_device), vs, 16384)
+    for name, a, b in zip(cpu._fields, cpu, gpu):
+        assert torch.equal(a, b.cpu()), name

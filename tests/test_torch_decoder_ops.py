@@ -8,6 +8,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from test_torch_reference_native import reference_native  # noqa: E402,F401 (autouse: the JAX host library, built whole)
 from flax import linen as nn
 
 torch = pytest.importorskip("torch")

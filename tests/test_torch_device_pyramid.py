@@ -13,6 +13,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from test_torch_reference_native import reference_native  # noqa: E402,F401 (autouse: the JAX host library, built whole)
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
@@ -65,8 +66,24 @@ def _surface(rng, n, extent=1.6):
     return np.concatenate([xy, z[:, None]], 1).astype(np.float32)
 
 
+def _face_points(rng, n, vs):
+    """Points on voxel faces ``k * vs`` (f32, k != 0: the neighbours of 0
+    are denormals, which XLA on the CPU flushes to zero) and one ulp to
+    either side of them, in every axis: some quantize to another voxel
+    under ``p * (1 / vs)`` than under the reference's ``p / vs``."""
+    k = rng.integers(1, 200, size=(n, 3)) * rng.choice([-1, 1], size=(n, 3))
+    faces = k.astype(np.float32) * np.float32(vs)
+    side = rng.integers(-1, 2, size=(n, 3))
+    pts = np.where(side < 0, np.nextafter(faces, np.float32(-np.inf)),
+                   np.where(side > 0, np.nextafter(faces, np.float32(np.inf)), faces))
+    return pts.astype(np.float32)
+
+
 def _voxel_cases():
     rng = np.random.default_rng(0)
+    faces = _face_points(rng, 3000, 0.05)
+    inv = np.float32(1) / np.float32(0.05)
+    assert (np.floor(faces / np.float32(0.05)) != np.floor(faces * inv)).any()
     pts = _surface(rng, 3000)
     mask = rng.random(3000) < 0.9
     far = pts.copy()
@@ -76,6 +93,7 @@ def _voxel_cases():
         "overflow": (pts, mask, 700),  # more voxels than rows: the largest keys are dropped
         "outside_extent": (far, mask, 4096),
         "empty_mask": (pts, np.zeros(3000, bool), 256),
+        "one_ulp_from_faces": (faces, np.ones(3000, bool), 8192),
     }
 
 

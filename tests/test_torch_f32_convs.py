@@ -3,11 +3,12 @@ two-term bf16 split's CPU model against the JAX package's f32 convs and
 gradients, and the wrappers' routing of f32 operands to the kernels.
 
 The kernels multiply bf16 on the tensor cores with f32 sums. An f32
-operand runs as ``hi + lo`` (``kernels/split.py``): ``gather_conv`` and
-``halo_conv`` contract the stacked operands ``[Xh | Xh | Xl]`` and ``[Wh ;
-Wl ; Wh]`` at 3 Cin in one launch; ``up_conv``'s f32 entry loops over the
-terms (the hi region against Wh and Wl, then the lo region against Wh);
-dgrad and wgrad run once per term of W or X. Here each of those is
+operand runs as ``hi + lo`` (``kernels/split.py``): the f32 entries of
+``gather_conv`` and ``halo_conv`` split each f32 feature row on chip and
+run the three products ``Xh Wh + Xh Wl + Xl Wh`` against the ``[Wh ; Wl]``
+weight slots of each module's ``pack_split_weights``; ``up_conv``'s f32
+entry loops over the terms (the hi region against Wh and Wl, then the lo region
+against Wh); dgrad and wgrad run once per term of W or X. Here each of those is
 modelled with the plain versions on the bf16 terms (exact products, f32
 sums), at the magnitudes of the card smoke's phase 3b (features of unit
 variance, He-scaled weights), and held to ``F32_RTOL`` of the output's
@@ -19,6 +20,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+from test_torch_reference_native import reference_native  # noqa: E402,F401 (autouse: the JAX host library, built whole)
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
@@ -28,8 +30,14 @@ from roreg_tpu.native.blockpyr import build_block_pyramid_host  # noqa: E402
 from roreg_tpu.sparse.conv import gather_conv as jax_gather_conv  # noqa: E402
 from roreg_tpu_torch.kernels import gather_conv as GC  # noqa: E402
 from roreg_tpu_torch.kernels.block_gather import block_gather_plain  # noqa: E402
-from roreg_tpu_torch.kernels.halo_conv import halo_conv_plain  # noqa: E402
-from roreg_tpu_torch.kernels.split import split_bf16x2, stack_terms  # noqa: E402
+from roreg_tpu_torch.kernels.halo_conv import (  # noqa: E402
+    F32_K_ORDER,
+    HaloConvKernel,
+    halo_conv_plain,
+    pack_split_weights,
+    pack_weights,
+)
+from roreg_tpu_torch.kernels.split import split_bf16x2  # noqa: E402
 from roreg_tpu_torch.kernels.up_conv import up_conv_plain  # noqa: E402
 
 # the kernels' f32 tolerance: 1e-4 of the output's largest magnitude (the
@@ -57,8 +65,18 @@ def test_split_leaves_two_to_the_minus_17():
     hi, lo = split_bf16x2(x)
     assert hi.dtype == lo.dtype == torch.bfloat16
     assert float(((hi.float() + lo.float()) - x).abs().max() / x.abs().max()) <= 2.0**-17
-    xs, ws = stack_terms(torch.ones(5, 32), torch.ones(27, 32, 64))
-    assert xs.shape == (5, 96) and ws.shape == (27, 96, 64) and xs.dtype == ws.dtype == torch.bfloat16
+    # the f32 entries' weight slots: both terms, bf16, as many elements as w twice
+    for slots in (pack_split_weights(torch.ones(27, 32, 64)),
+                  GC.pack_split_weights(torch.ones(27, 32, 64))):
+        assert slots.dtype == torch.bfloat16 and slots.numel() == 2 * 27 * 32 * 64 and slots.is_contiguous()
+
+
+def _three_products(plain, x, w, *args):
+    """What the f32 entries compute: ``Xh Wh + Xh Wl + Xl Wh`` with exact
+    bf16 products and f32 sums (Xl Wl dropped)."""
+    (xh, xl), (wh, wl) = split_bf16x2(x), split_bf16x2(w)
+    return plain(xh, *args[:1], wh, *args[1:]) + plain(xh, *args[:1], wl, *args[1:]) \
+        + plain(xl, *args[:1], wh, *args[1:])
 
 
 def _gather_inputs(rng, n, m, k, cin, cout):
@@ -69,14 +87,13 @@ def _gather_inputs(rng, n, m, k, cin, cout):
 
 
 @pytest.mark.parametrize("cin,cout", [(32, 64), (256, 128)])
-def test_stacked_gather_conv_model_matches_jax_f32(cin, cout):
-    """The stacked contraction ``[Xh|Xh|Xl] @ [Wh;Wl;Wh]`` (what the
-    kernel computes at 3 Cin) against the JAX package's f32 gather conv."""
+def test_three_product_gather_conv_model_matches_jax_f32(cin, cout):
+    """The three products ``Xh Wh + Xh Wl + Xl Wh`` (what the kernel's f32
+    entry computes) against the JAX package's f32 gather conv."""
     rng = np.random.default_rng(cin)
     feats, nbr, w = _gather_inputs(rng, 900, 700, 27, cin, cout)
     ref = np.asarray(jax_gather_conv(jnp.asarray(feats), jnp.asarray(nbr), jnp.asarray(w)))
-    xs, ws = stack_terms(_t(feats), _t(w))
-    model = GC.gather_conv_plain(xs, _t(nbr), ws)
+    model = _three_products(GC.gather_conv_plain, _t(feats), _t(w), _t(nbr))
     assert _rel(model.numpy(), ref) <= F32_RTOL
     one_term = GC.gather_conv_plain(_t(feats).bfloat16(), _t(nbr), _t(w).bfloat16())
     assert _rel(one_term.numpy(), ref) > 10 * F32_RTOL
@@ -94,8 +111,9 @@ def pyr():
 
 @pytest.mark.parametrize("kind,level,cin,cout", [("same", 0, 32, 32), ("same", 2, 128, 128),
                                                  ("down", 0, 32, 64), ("down", 2, 128, 256)])
-def test_stacked_halo_conv_model_matches_jax_f32(pyr, kind, level, cin, cout):
-    """halo_conv's stacked contraction at 3 Cin against JAX ``conv_same`` /
+def test_three_product_halo_conv_model_matches_jax_f32(pyr, kind, level, cin, cout):
+    """halo_conv's three products (its f32 entry's arithmetic; the entry's
+    K order changes only the order of f32 sums) against JAX ``conv_same`` /
     ``conv_down`` at f32."""
     p, occ = pyr
     rng = np.random.default_rng(level + cin)
@@ -106,8 +124,7 @@ def test_stacked_halo_conv_model_matches_jax_f32(pyr, kind, level, cin, cout):
     feats = (rng.normal(size=(len(occ[level]), 64, cin)) * occ[level][..., None]).astype(np.float32)
     w = _he(rng, 27, cin, cout, 27)
     ref = np.asarray(fn(jnp.asarray(feats), jnp.asarray(tbl), jnp.asarray(w), jnp.asarray(mask)))
-    xs, ws = stack_terms(_t(feats), _t(w))
-    model = halo_conv_plain(xs, _t(tbl), ws, _t(mask), span, stride)
+    model = _three_products(halo_conv_plain, _t(feats), _t(w), _t(tbl), _t(mask), span, stride)
     assert _rel(model.numpy(), ref) <= F32_RTOL
     one_term = halo_conv_plain(_t(feats).bfloat16(), _t(tbl), _t(w).bfloat16(), _t(mask), span, stride)
     assert _rel(one_term.numpy(), ref) > 10 * F32_RTOL
@@ -201,3 +218,44 @@ def test_wrappers_route_f32_to_the_kernels(monkeypatch):
     assert calls == [("halo", f32), ("halo", f32), ("block_gather", (torch.float32,)), ("up", f32)]
     conv = tblock._BlockConv(32, 64, "up", None)
     assert conv.cat_input(_meta(6, 64, 32), _meta(6, 64, 16)).shape == (6, 64, 48)
+
+
+@pytest.mark.parametrize("cin,cout", [(16, 32), (64, 128), (256, 256)])
+def test_split_weight_slots_hold_the_terms_of_each_step(cin, cout):
+    """Each kernel module's ``pack_split_weights`` against ``pack_weights``
+    of the two terms of ``split_bf16x2(w)``: halo_conv's slot (chunk c, tap) is [Wh stage ; Wl
+    stage] with the 16 input rows of both in ``F32_K_ORDER``;
+    gather_conv's slot (offset k, 32-channel step c) the two Wh stages of
+    the step, then its two Wl stages."""
+    w = torch.from_numpy(np.random.default_rng(cin).normal(size=(27, cin, cout)).astype(np.float32))
+    wh, wl = split_bf16x2(w)
+    order = torch.tensor(F32_K_ORDER)
+    perm = (torch.arange(cin).view(-1, 16)[:, order]).reshape(-1)
+    halo = pack_split_weights(w)
+    ph, pl = pack_weights(wh[:, perm]), pack_weights(wl[:, perm])
+    for c in range(cin // 16):
+        for tap in (0, 13, 26):
+            assert torch.equal(halo[c, tap, 0], ph[c, tap]) and torch.equal(halo[c, tap, 1], pl[c, tap])
+    if cin % 32:
+        return
+    gather = GC.pack_split_weights(w)
+    gh, gl = pack_weights(wh, tap_major=True), pack_weights(wl, tap_major=True)
+    for k in (0, 26):
+        for c in range(cin // 32):
+            assert torch.equal(gather[k, c, 0], gh[k, 2 * c:2 * c + 2])
+            assert torch.equal(gather[k, c, 1], gl[k, 2 * c:2 * c + 2])
+
+
+@pytest.mark.parametrize("kernel,entry,pack", [(HaloConvKernel, "halo_conv", pack_split_weights),
+                                               (GC.GatherConvKernel, "gather_conv", GC.pack_split_weights)])
+def test_f32_operands_go_to_the_f32_entry_unsplit(kernel, entry, pack):
+    """The wrappers' operand step: f32 operands go to the f32 entry with
+    the split weight slots and nothing made of the features (the step
+    reads only their type: here they lie on the meta device, with no
+    data); bf16 operands to the bf16 entry with ``pack_weights``."""
+    w = torch.from_numpy(np.random.default_rng(1).normal(size=(27, 64, 32)).astype(np.float32))
+    name, wp = kernel.operands(torch.empty(100, 64, device="meta"), w)
+    want = pack(w)
+    assert name == f"{entry}_f32" and torch.equal(wp, want)
+    name, wp = kernel.operands(torch.empty(100, 64, device="meta", dtype=torch.bfloat16), w.bfloat16())
+    assert name == f"{entry}_bf16" and torch.equal(wp, pack_weights(w.bfloat16(), tap_major=entry == "gather_conv"))

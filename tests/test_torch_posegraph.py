@@ -9,6 +9,7 @@ import sys
 
 import numpy as np
 import pytest
+from test_torch_reference_native import reference_native  # noqa: E402,F401 (autouse: the JAX host library, built whole)
 
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
