@@ -136,6 +136,20 @@ Phases, each ending in one flushed progress line on stderr:
    gather-engine forward on one full-width pyramid of cloud 0, kernels
    against plain versions, at phase 3c's tolerance; each forward must
    launch gather_conv once per gather conv;
+11d. block zoo: each batch-norm ``RESUNET_VARIANTS`` entry on the block
+   engine, ``PipelineConfig(engine="block", backbone_variant=...)`` at full
+   width with seeded random weights: cloud 0's describe through
+   ``extract_group_features_blocks`` (each chunk must launch the five
+   block kernels ``BLOCK_PER_CHUNK`` times and nothing else, no block
+   dropped, keypoint features finite and unit-norm), then chunk 0's
+   forward against the same forward with ``sparse.block``'s kernel names
+   pointed at the plain versions, at phase 3c's tolerance (finite,
+   occupied rows unit-norm, padding rows zero); each variant's forward ms
+   a chunk and each block kernel's device ms a chunk (``torch.profiler``).
+   Then ResUNetBN2E, the widest, registers the smoke pair through
+   ``PipelineConfig(backbone_variant="ResUNetBN2E")`` at bf16 and at
+   ``backbone_compute_dtype=None`` (the f32 entries; skip_concat none), with
+   phase 6's launch counts;
 12. device-built pyramids: ``PipelineConfig(engine="gather",
    host_maps=False)`` at full width: all 60 rotations of both clouds
    built on the card bit-equal to the host builder, the describe within
@@ -322,10 +336,11 @@ def cuda_ms(fn, reps: int, warmup: int = 2, flush: torch.Tensor | None = None) -
     return sum(s.elapsed_time(e) for s, e in spans) / reps
 
 
-def device_split_ms(fn, kernel_tag: str, reps: int = 5) -> dict:
+def device_ms_by_tag(fn, tags: dict, reps: int = 5) -> dict:
     """Device milliseconds of one warm call of ``fn`` under
-    ``torch.profiler`` (mean over ``reps``), split into the kernels whose
-    names hold ``kernel_tag`` and everything else the call launches."""
+    ``torch.profiler`` (mean over ``reps``): for each ``name: tag`` of
+    ``tags``, the kernels whose names hold the tag (each must have run),
+    and under ``"other"`` everything else the call launches."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -336,11 +351,19 @@ def device_split_ms(fn, kernel_tag: str, reps: int = 5) -> dict:
         torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
     device = [e for e in prof.events() if e.device_type == cuda]
-    if not any(kernel_tag in e.name for e in device):
-        raise AssertionError(f"the profiler recorded no {kernel_tag} on the device")
-    kernel = sum(e.time_range.elapsed_us() for e in device if kernel_tag in e.name)
-    other = sum(e.time_range.elapsed_us() for e in device if kernel_tag not in e.name)
-    return {"kernel_device_ms": kernel / 1e3 / reps, "other_device_ms": other / 1e3 / reps}
+    missing = [t for t in tags.values() if not any(t in e.name for e in device)]
+    if missing:
+        raise AssertionError(f"the profiler recorded no {missing} on the device")
+    ms = {n: sum(e.time_range.elapsed_us() for e in device if t in e.name) / 1e3 / reps for n, t in tags.items()}
+    ms["other"] = sum(e.time_range.elapsed_us() for e in device
+                      if not any(t in e.name for t in tags.values())) / 1e3 / reps
+    return ms
+
+
+def device_split_ms(fn, kernel_tag: str, reps: int = 5) -> dict:
+    """:func:`device_ms_by_tag` for one kernel: its device ms and the rest's."""
+    ms = device_ms_by_tag(fn, {"kernel": kernel_tag}, reps)
+    return {"kernel_device_ms": ms["kernel"], "other_device_ms": ms["other"]}
 
 
 def phase_device() -> dict:
@@ -1633,6 +1656,104 @@ def phase_zoo(pair: dict, seed: int, device: str = "cuda") -> dict:
     return out
 
 
+def phase_block_zoo(pair: dict, seed: int, device: str = "cuda", base=None) -> dict:
+    """Phase 11d (see the module docstring). ``base``: the configuration
+    whose variant each run replaces (``PipelineConfig(engine="block")`` by
+    default; a rehearsal passes a small one)."""
+    import roreg_tpu_torch.sparse.block as sblock
+    from roreg_tpu_torch.kernels.block_gather import block_gather_plain
+    from roreg_tpu_torch.kernels.cell_dense import cell_dense_plain
+    from roreg_tpu_torch.kernels.halo_conv import halo_conv_plain
+    from roreg_tpu_torch.kernels.skip_concat import skip_concat_plain
+    from roreg_tpu_torch.kernels.up_conv import up_conv_plain
+    from roreg_tpu_torch.pipeline.config import PipelineConfig
+    from roreg_tpu_torch.pipeline.extractor import (
+        build_cloud_payloads, chunk_block_pyramid, effective_chunk, extract_group_features_blocks,
+        make_backbone, upload_cloud_payloads,
+    )
+    from roreg_tpu_torch.sparse.resunet import RESUNET_VARIANTS
+    from roreg_tpu_torch.weights import init_module_variables, load_variables
+
+    dev = torch.device(device)
+    base = base or PipelineConfig(engine="block")
+    chunk = effective_chunk(base.group_size, base.group_chunk)
+    n_chunks = base.group_size // chunk
+    payload, key_rows, caps, dropped = build_cloud_payloads(pair["points0"], pair["keys0"], base)
+    if dropped:
+        raise AssertionError(f"phase 11d: cloud 0 drops {dropped} blocks at block_caps {caps}")
+    dev_payload, _ = upload_cloud_payloads(payload, key_rows, dev)
+    pyr = chunk_block_pyramid(dev_payload, 0, caps, chunk)
+    mask = sblock.unpack_cell_occupancy(pyr.levels[0].occ_words).reshape(-1)
+    kernels = _kernels()
+    plains = {"block_gather": block_gather_plain, "halo_conv": halo_conv_plain, "up_conv": up_conv_plain,
+              "skip_concat": skip_concat_plain, "cell_dense": cell_dense_plain}
+    expected = {n: c * n_chunks for n, c in BLOCK_PER_CHUNK.items()}
+    out = {}
+    for name in [v for v, (_, _, norm) in RESUNET_VARIANTS.items() if norm == "BN"]:
+        cfg = dataclasses.replace(base, backbone_variant=name)
+        net = make_backbone(cfg, engine="block")
+        load_variables(net, init_module_variables(net, seed))
+        net.to(dev).eval()
+        with torch.inference_mode():
+            for k in kernels.values():
+                k.launches = 0
+            t0 = time.perf_counter()
+            feats, drop = extract_group_features_blocks(net, pair["points0"], pair["keys0"], cfg, dev)
+            torch.cuda.synchronize()
+            describe_s = time.perf_counter() - t0
+            launches = {n: k.launches for n, k in kernels.items() if k.launches}
+            got = net(pyr)
+            real = {n: getattr(sblock, n) for n in plains}
+            for n, fn in plains.items():
+                setattr(sblock, n, fn)
+            try:
+                want = net(pyr)
+            finally:
+                for n, fn in real.items():
+                    setattr(sblock, n, fn)
+            forward_ms = cuda_ms(lambda: net(pyr), reps=3, warmup=1)
+            kernel_ms = device_ms_by_tag(lambda: net(pyr), {n: f"{n}_kernel" for n in BLOCK_PER_CHUNK}, reps=3)
+        if launches != expected:
+            raise AssertionError(f"phase 11d {name}: describe launches {launches}, expected {expected} "
+                                 f"({n_chunks} chunks)")
+        if drop:
+            raise AssertionError(f"phase 11d {name}: {drop} blocks dropped at {caps}")
+        k_norm = torch.linalg.norm(feats, dim=-1)
+        if (tuple(feats.shape) != (pair["keys0"].shape[0], cfg.group_size, 32)
+                or not bool(torch.isfinite(feats).all()) or float((k_norm - 1).abs().max()) > 1e-3):
+            raise AssertionError(f"phase 11d {name}: describe {tuple(feats.shape)}, finite "
+                                 f"{bool(torch.isfinite(feats).all())}, max |norm-1| {float((k_norm - 1).abs().max())}")
+        d = (got - want).abs()[mask]
+        norms = torch.linalg.norm(got[mask], dim=-1)
+        err = {"max": float(d.max()), "mean": float(d.mean()), "norm_err": float((norms - 1).abs().max()),
+               "pad_rows_nonzero": int(got[~mask].any(-1).sum())}
+        if (not bool(torch.isfinite(got).all()) or err["max"] > REFERENCE_ATOL or err["mean"] > REFERENCE_MEAN_ATOL
+                or err["norm_err"] > 1e-3 or err["pad_rows_nonzero"]):
+            raise AssertionError(f"phase 11d {name}: chunk 0's forward, kernels against plain versions {err}")
+        out[name] = {"launches": launches, "launches_per_chunk": {n: c // n_chunks for n, c in launches.items()},
+                     "describe_s": describe_s, "forward_ms": forward_ms, "kernel_ms": kernel_ms, "err": err,
+                     "occupied_level0_cells": int(mask.sum())}
+        progress(f"phase 11d {name}: describe {describe_s:.2f} s ({n_chunks} chunks, launches a chunk "
+                 f"{out[name]['launches_per_chunk']}); chunk 0's forward {forward_ms:.2f} ms, device ms a chunk "
+                 + ", ".join(f"{n} {v:.3f}" for n, v in kernel_ms.items())
+                 + f"; kernels against plain versions max {err['max']:.1e}, mean {err['mean']:.1e}")
+        del net, got, want, feats
+        torch.cuda.empty_cache()
+    wide = dataclasses.replace(base, backbone_variant="ResUNetBN2E")  # the default chain (RM), widest backbone
+    res = {"variants": out,
+           "bn2e_slice": phase_slice(wide, pair, seed, BLOCK_PER_CHUNK,
+                                     "phase 11d ResUNetBN2E default chain", device),
+           "bn2e_slice_f32": phase_slice(dataclasses.replace(wide, backbone_compute_dtype=None), pair, seed,
+                                         {**BLOCK_PER_CHUNK, "skip_concat": 0},
+                                         "phase 11d ResUNetBN2E default chain at f32 convs", device)}
+    progress(f"phase 11d block zoo: {len(out)} batch-norm variants on the block engine at full width, each "
+             f"chunk launching {BLOCK_PER_CHUNK}; kernels against plain versions max "
+             f"{max(v['err']['max'] for v in out.values()):.1e}, mean {max(v['err']['mean'] for v in out.values()):.1e} "
+             f"(tol {REFERENCE_ATOL}, {REFERENCE_MEAN_ATOL}); forward ms a chunk "
+             + ", ".join(f"{n} {v['forward_ms']:.2f}" for n, v in out.items()))
+    return res
+
+
 def phase_f32_kernels(gather_cfg, block_cfg, pair: dict, seed: int, device: str = "cuda") -> dict:
     """Phase 3e: the conv kernels with f32 operands against their f32 plain
     versions, TF32 off for cuBLAS and cuDNN (restored after): gather_conv at
@@ -2070,6 +2191,7 @@ def main() -> int:
         report["backbone_train"] = phase_backbone_train(pair, args.seed)
         report["backbone_train_f32"] = phase_backbone_train_f32(args.seed)
         report["zoo"] = phase_zoo(pair, args.seed)
+        report["block_zoo"] = phase_block_zoo(pair, args.seed)
         report["device_pyramids"] = phase_device_pyramids(pair, args.seed)
         report["dist"] = phase_dist(args.seed)
         report["total_s"] = time.perf_counter() - T0
@@ -2131,6 +2253,9 @@ def main() -> int:
                 "bench_caps_bound_ms": report["bench_kernels"]["bench"]["totals"][name]["bound_ms"],
                 # phase 10: the GF feature cache's describes (12 clouds x rotations)
                 "train_cache_launches": report["train"]["GF"]["describe_launches"][name],
+                # phase 11d: each batch-norm variant's describe of cloud 0, and its device ms a chunk
+                "block_zoo_launches": {v: r["launches"][name] for v, r in report["block_zoo"]["variants"].items()},
+                "block_zoo_ms": {v: r["kernel_ms"][name] for v, r in report["block_zoo"]["variants"].items()},
                 **_f32_fields(f32["block"].get(name), report["f32_slice"]["block"]["launches"][name],
                               t if name == "cell_dense" else None),
             })

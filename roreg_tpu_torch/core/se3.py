@@ -15,6 +15,8 @@ __all__ = [
     "kabsch_weighted",
     "three_points_to_transform",
     "refine_transform",
+    "compose",
+    "invert",
 ]
 
 
@@ -76,3 +78,14 @@ def refine_transform(
     w = torch.where(no_inl, torch.full_like(w, 1e-6), w)
     T_new = kabsch_weighted(keys1, keys0, w)
     return torch.where(no_inl[..., None], T, T_new)
+
+
+def compose(T0: torch.Tensor, T1: torch.Tensor) -> torch.Tensor:
+    """(…, 4, 4), (…, 4, 4) -> T0 @ T1: apply T1, then T0."""
+    return torch.einsum("...ij,...jk->...ik", T0, T1)
+
+
+def invert(T: torch.Tensor) -> torch.Tensor:
+    """Inverse of a rigid (…, 4, 4): (R^T, -R^T t)."""
+    Rt = T[..., :3, :3].transpose(-1, -2)
+    return make_transform(Rt, -torch.einsum("...ij,...j->...i", Rt, T[..., :3, 3]))

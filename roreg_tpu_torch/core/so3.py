@@ -12,8 +12,11 @@ __all__ = [
     "matrix_from_quaternion",
     "quaternion_from_matrix",
     "quaternion_angle_deg",
+    "rotation_angle_deg",
+    "relative_angle_deg",
     "nearest_group_index",
     "residual_quaternion",
+    "random_rotation",
 ]
 
 
@@ -66,6 +69,19 @@ def quaternion_angle_deg(q0: torch.Tensor, q1: torch.Tensor) -> torch.Tensor:
     return torch.rad2deg(torch.arccos((1.0 - 2.0 * loss_q).clamp(-1.0, 1.0)))
 
 
+def rotation_angle_deg(R: torch.Tensor) -> torch.Tensor:
+    """Geodesic rotation angle of (…, 3, 3) in degrees."""
+    tr = R.diagonal(dim1=-2, dim2=-1).sum(-1)
+    return torch.rad2deg(torch.arccos(((tr - 1.0) / 2.0).clamp(-1.0, 1.0)))
+
+
+def relative_angle_deg(R0: torch.Tensor, R1: torch.Tensor) -> torch.Tensor:
+    """Angle between two rotations in degrees: trace(R0^T R1) through the
+    element-wise sum (the reference's ``compute_R_diff``)."""
+    tr = (R0 * R1).sum((-2, -1))
+    return torch.rad2deg(torch.arccos(((tr - 1.0) / 2.0).clamp(-1.0, 1.0)))
+
+
 def nearest_group_index(R: torch.Tensor, rotations: torch.Tensor) -> torch.Tensor:
     """argmin_g angle(R, R_g): max trace(R_g^T R), for (…, 3, 3) vs (G, 3, 3)."""
     tr = torch.einsum("gij,...ij->...g", rotations.to(R.dtype), R)
@@ -78,3 +94,12 @@ def residual_quaternion(
     """deltaR = R @ R_anchor^T as a quaternion."""
     anchor = rotations.to(R.dtype)[idx]
     return quaternion_from_matrix(torch.einsum("...ij,...kj->...ik", R, anchor))
+
+
+def random_rotation(generator: torch.Generator | None = None, shape: tuple[int, ...] = ()) -> torch.Tensor:
+    """Uniform random f32 rotations (…, 3, 3) via normalized Gaussian
+    quaternions drawn from ``generator``, on its device (the CPU without
+    one). The JAX package's threefry draws are not reproduced: the same
+    normals give the same rotations."""
+    device = generator.device if generator is not None else None
+    return matrix_from_quaternion(torch.randn(tuple(shape) + (4,), generator=generator, device=device))

@@ -12,9 +12,20 @@ import torch
 from torch import nn
 
 from roreg_tpu_torch.core.group import IcosahedralGroup
-from roreg_tpu_torch.models.ops import CombConv, GroupConv, ResidualCombConv
+from roreg_tpu_torch.models.ops import CombConv, GroupConv, ResidualCombConv, group_correlation
 
-__all__ = ["GroupFeatNetwork"]
+__all__ = ["GroupFeatNetwork", "des_to_dr_index", "GFOutput"]
+
+
+def des_to_dr_index(eqv0: torch.Tensor, eqv1: torch.Tensor, cayley: torch.Tensor) -> torch.Tensor:
+    """argmax_a sum_g <eqv0[cayley[a, g]], eqv1[g]>: the predicted group
+    index a such that cloud1 ~ R_a · cloud0 (the Des2DR correlation).
+    ``torch.argmax`` takes the first maximum, as ``jnp.argmax`` does."""
+    return group_correlation(eqv0, eqv1, cayley).argmax(-1)
+
+
+# the network's output: {"eqv": (B, G, C), "inv": (B, C)}
+GFOutput = dict
 
 
 class GroupFeatNetwork(nn.Module):
@@ -25,7 +36,7 @@ class GroupFeatNetwork(nn.Module):
         self.res0 = ResidualCombConv(width, width * 2, width, nei)
         self.conv_out = CombConv(width, channels, nei)
 
-    def forward(self, feats: torch.Tensor) -> dict[str, torch.Tensor]:
+    def forward(self, feats: torch.Tensor) -> GFOutput:
         x = self.conv_out(self.res0(self.conv_in(feats)))
         eqv = x + feats
         inv = eqv.mean(-2)

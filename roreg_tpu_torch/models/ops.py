@@ -14,7 +14,13 @@ from torch import nn
 
 from roreg_tpu_torch.layers import BatchNorm
 
-__all__ = ["GroupConv", "CombConv", "ResidualCombConv", "group_correlation"]
+__all__ = ["so3_gather", "GroupConv", "CombConv", "ResidualCombConv", "group_correlation"]
+
+
+def so3_gather(x: torch.Tensor, nei: torch.Tensor) -> torch.Tensor:
+    """(…, G, C), (G, K) long -> (…, G, K, C) neighbourhood gather on the G
+    axis."""
+    return x[..., nei, :]
 
 
 class GroupConv(nn.Linear):
@@ -27,7 +33,7 @@ class GroupConv(nn.Linear):
         self.register_buffer("nei", torch.as_tensor(np.asarray(nei), dtype=torch.long), persistent=False)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = x[..., self.nei, :]  # (..., G, K, C)
+        h = so3_gather(x, self.nei)  # (..., G, K, C)
         return super().forward(h.reshape(h.shape[:-2] + (-1,)))
 
 

@@ -23,6 +23,7 @@ __all__ = [
     "neighbor_table_host",
     "neighbor_occupancy_host",
     "build_block_pyramid_native",
+    "mutual_pairs_host",
 ]
 
 _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "voxelhash.cpp")
@@ -73,6 +74,8 @@ def _load() -> ctypes.CDLL:
             + [u32p] * 4 + [i16p] * 7 + [i32p] * 3
             + [i16p, i32p, f32p, i64, i32p]
         )
+        lib.mutual_pairs.restype = i64
+        lib.mutual_pairs.argtypes = [f32p, i64, f32p, i64, ctypes.c_float, i32p]
         _lib = lib
         return lib
 
@@ -181,3 +184,17 @@ def build_block_pyramid_native(points, voxel_size, out, keys=None, key_rows=None
         out.l0_coords, out.origin,
         keys, len(keys), key_rows,
     ))
+
+
+def mutual_pairs_host(keys0_t: np.ndarray, keys1: np.ndarray, thre: float) -> np.ndarray:
+    """Mutual-nearest ground-truth pairing (the RM trainset's pairmatch):
+    ``keys0_t`` (N0, 3) already in keys1's frame, ``keys1`` (N1, 3) ->
+    (P, 2) int32 pairs (i, j) in order of i, each mutual nearest and closer
+    than ``thre``."""
+    k0 = np.ascontiguousarray(keys0_t, np.float32).reshape(-1, 3)
+    k1 = np.ascontiguousarray(keys1, np.float32).reshape(-1, 3)
+    out = np.empty((len(k0), 2), np.int32)
+    if not len(k0) or not len(k1):
+        return out[:0]
+    n = _load().mutual_pairs(k0, len(k0), k1, len(k1), thre, out)
+    return out[:n].copy()

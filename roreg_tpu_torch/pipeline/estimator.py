@@ -20,7 +20,7 @@ import torch
 
 from roreg_tpu_torch.core import se3
 from roreg_tpu_torch.core.so3 import matrix_from_quaternion
-from roreg_tpu_torch.models.ops import group_correlation
+from roreg_tpu_torch.models.gf import des_to_dr_index
 
 __all__ = [
     "dr_index",
@@ -47,7 +47,7 @@ def _rows(x: torch.Tensor, idx: torch.Tensor, feat_dims: int = 1) -> torch.Tenso
 def dr_index(eqv0: torch.Tensor, eqv1: torch.Tensor, cayley: torch.Tensor) -> torch.Tensor:
     """Coarse group index per match; the permuted operand is the cloud-1
     feature, so index a satisfies cloud0 ~ R_a · cloud1."""
-    return group_correlation(eqv1, eqv0, cayley).argmax(-1)
+    return des_to_dr_index(eqv1, eqv0, cayley)
 
 
 def local_transforms(quaternions, idx, keys0, keys1, rotations) -> torch.Tensor:

@@ -337,7 +337,11 @@ def test_halo_conv_kernel_f32_on_gpu(exact_f32, span, stride, cin, cout):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("blocks,cin,cout", [(203, 256, 128), (405, 256, 64), (1213, 128, 64), (99, 32, 32)])
+@pytest.mark.parametrize("blocks,cin,cout", [
+    (203, 256, 128), (405, 256, 64), (1213, 128, 64), (99, 32, 32),
+    (611, 192, 64),  # ResUNetBN2B's conv3_tr, ResUNetBN2D's conv2_tr
+    (2053, 256, 128),  # ResUNetBN2E's conv2_tr, level 0
+])
 def test_up_conv_kernel_f32_on_gpu(exact_f32, blocks, cin, cout):
     """The kernel's f32 entry (a loop over the terms: the hi region against
     both weight terms, then the lo region restaged against w_hi), at the
@@ -400,3 +404,37 @@ def test_halo_conv_kernel_f32_dead_runs_on_gpu(exact_f32, span, stride, cin, cou
     assert bf16["blocks_per_cta"] == f32["blocks_per_cta"] == (4 if span == 6 and cout <= 64 else 2)
     assert bf16["halo_buffers"] == 2 and f32["halo_buffers"] == (1 if (span, cout) == (9, 256) else 2)
     assert f32["stages"] >= 4 and max(bf16["smem_bytes"], f32["smem_bytes"]) <= 232448 - 1024
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("span,stride", [(6, 1), (9, 2)])
+def test_halo_conv_kernel_bn2e_level0_on_gpu(exact_f32, span, stride, dtype):
+    """ResUNetBN2E's level-0 and level-1 convs, Cin = Cout = 128, at a
+    level-0-sized block count (a chunk of the smoke pair's level 0 holds
+    thousands of occupied blocks, most with many live cells), both entries:
+    the f32 entry at SPAN 9 and Cout 128 takes its largest shared-memory
+    layout."""
+    dev = exact_f32
+    rng = np.random.default_rng(span + (dtype == torch.float32))
+    nsrc, b = 4099, 4099
+    tbl, mask = _blocks(rng, b, nsrc, absent=0.2)
+    mask |= rng.random((b, 64)) < 0.3  # denser than _blocks' cells
+    mask[-40:] = False  # the capacity's padding tail
+    tbl = torch.from_numpy(tbl).to(dev)
+    mask = torch.from_numpy(mask).to(dev)
+    feats = torch.randn(nsrc, 64, 128, device=dev).to(dtype)
+    w = (torch.randn(27, 128, 128, device=dev) * (2 / (27 * 128)) ** 0.5).to(dtype)
+    before = halo_conv_kernel.launches
+    out = halo_conv(feats, tbl, w, mask, span, stride)
+    assert halo_conv_kernel.launches == before + 1
+    torch.cuda.synchronize()
+    ref = halo_conv_plain(feats, tbl, w, mask, span, stride)
+    assert out.dtype == torch.float32 and out.shape == (b, 64, 128)
+    if dtype == torch.float32:
+        assert _f32_err(out, ref) <= F32_RTOL
+    else:
+        assert float((out - ref).abs().max()) <= HALO_ATOL
+    assert bool((out[~mask] == 0).all())
+    shape = halo_conv_kernel.launch_shape(128, 128, span, stride, dtype == torch.float32)
+    assert shape["smem_bytes"] <= 232448 - 1024

@@ -104,3 +104,56 @@ def test_mutual_nn_matches_jax():
     assert np.array_equal(n.numpy(), np.asarray(nj))
     assert np.array_equal(mu.numpy(), np.asarray(mj))
     assert mu.sum() > 50
+
+
+def test_compose_and_invert_match_jax():
+    rng = np.random.default_rng(4)
+    R, _ = _rand_rotations(rng, 6)
+    tv = rng.normal(size=(6, 3)).astype(np.float32)
+    T = np.asarray(jse3.make_transform(jnp.asarray(R), jnp.asarray(tv)))
+    T0, T1 = T[:3], T[3:]
+    t = lambda x: torch.from_numpy(np.array(x))  # noqa: E731
+    ref = np.asarray(jse3.compose(jnp.asarray(T0), jnp.asarray(T1)))
+    assert np.abs(se3.compose(t(T0), t(T1)).numpy() - ref).max() <= TOL
+    inv_j = np.asarray(jse3.invert(jnp.asarray(T)))
+    inv = se3.invert(t(T))
+    assert np.abs(inv.numpy() - inv_j).max() <= TOL
+    assert np.abs(se3.compose(t(T), inv).numpy() - np.eye(4)).max() <= TOL
+
+
+def test_rotation_angles_match_jax():
+    rng = np.random.default_rng(5)
+    R0, R1 = (_rand_rotations(rng, 64)[0].copy() for _ in range(2))
+    # the clip's ends: the identity (0 degrees) and a half turn (180)
+    R0[0], R1[0] = np.eye(3), np.eye(3)
+    R0[1] = np.diag([1.0, -1.0, -1.0]).astype(np.float32)
+    t = lambda x: torch.from_numpy(np.array(x))  # noqa: E731
+    a_j = np.asarray(jso3.rotation_angle_deg(jnp.asarray(R0)))
+    a = so3.rotation_angle_deg(t(R0)).numpy()
+    assert a.shape == a_j.shape == (64,) and np.abs(a - a_j).max() <= 1e-3
+    assert abs(a[0]) <= 1e-3 and abs(a[1] - 180.0) <= 1e-3
+    r_j = np.asarray(jso3.relative_angle_deg(jnp.asarray(R0), jnp.asarray(R1)))
+    r = so3.relative_angle_deg(t(R0), t(R1)).numpy()
+    assert np.abs(r - r_j).max() <= 1e-3
+    # the relative angle is the angle of R0^T R1
+    assert np.abs(r - so3.rotation_angle_deg(t(R0).transpose(-1, -2) @ t(R1)).numpy()).max() <= 1e-2
+
+
+def test_random_rotation_matches_jax_on_the_same_draws():
+    """JAX draws threefry normals and torch draws its own (ROADMAP C1): the
+    same normals, fed to both sides' quaternion map, give the same
+    rotations."""
+    import jax
+
+    gen = torch.Generator().manual_seed(3)
+    R = so3.random_rotation(gen, (5, 7))
+    q = torch.randn((5, 7, 4), generator=torch.Generator().manual_seed(3))
+    ref = np.asarray(jso3.matrix_from_quaternion(jnp.asarray(q.numpy())))
+    assert R.shape == (5, 7, 3, 3) and np.abs(R.numpy() - ref).max() <= TOL
+    assert float((R.transpose(-1, -2) @ R - torch.eye(3)).abs().max()) <= TOL
+    assert float((torch.linalg.det(R) - 1).abs().max()) <= TOL
+    key = jax.random.PRNGKey(11)
+    R_j = np.asarray(jso3.random_rotation(key, (9,)))
+    qj = np.asarray(jax.random.normal(key, (9, 4)))
+    assert np.abs(so3.matrix_from_quaternion(torch.from_numpy(qj.copy())).numpy() - R_j).max() <= TOL
+    assert so3.random_rotation().shape == (3, 3)

@@ -342,7 +342,12 @@ def test_kernel_matches_plain_on_gpu(cuda_device, cin, cout):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("blocks,ca,cb", [(517, 128, 128), (1031, 64, 64), (33, 64, 32)])
+@pytest.mark.parametrize("blocks,ca,cb", [
+    (517, 128, 128), (1031, 64, 64), (33, 64, 32),
+    (1031, 64, 128),  # ResUNetBN2B, level 1
+    (2053, 128, 64),  # ResUNetBN2D, level 0
+    (2053, 128, 128),  # ResUNetBN2E, level 0
+])
 def test_skip_concat_kernel_matches_plain_on_gpu(cuda_device, blocks, ca, cb):
     """Bit-exact: the kernel copies and rounds to nearest even."""
     g = torch.Generator(device=cuda_device).manual_seed(blocks)
@@ -360,6 +365,9 @@ def test_skip_concat_kernel_matches_plain_on_gpu(cuda_device, blocks, ca, cb):
 @pytest.mark.parametrize("blocks,ca,cb,n,bias,relu", [
     (301, 64, 32, 64, False, True),  # conv1_tr
     (301, 64, 0, 32, True, False),  # final
+    (301, 64, 32, 32, False, True),  # ResUNetBN2's conv1_tr
+    (301, 32, 0, 32, True, False),  # ResUNetBN2's final
+    (301, 128, 128, 64, False, True),  # ResUNetBN2E's conv1_tr
 ])
 def test_cell_dense_kernel_matches_plain_on_gpu(cuda_device, blocks, ca, cb, n, bias, relu):
     g = torch.Generator(device=cuda_device).manual_seed(ca + cb + n)
@@ -396,6 +404,9 @@ def _dense_mask(blocks, pattern, device):
 @pytest.mark.parametrize("blocks,ca,cb,n,bias,relu", [
     (301, 64, 32, 64, False, True),  # conv1_tr
     (301, 64, 0, 32, True, False),  # final
+    (301, 64, 32, 32, False, True),  # ResUNetBN2's conv1_tr
+    (301, 32, 0, 32, True, False),  # ResUNetBN2's final
+    (301, 128, 128, 64, False, True),  # ResUNetBN2E's conv1_tr
 ])
 def test_masked_cell_dense_kernel_matches_plain_on_gpu(cuda_device, pattern, blocks, ca, cb, n, bias,
                                                        relu):
@@ -436,7 +447,11 @@ def test_masked_cell_dense_kernel_ragged_last_tile_on_gpu(cuda_device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("blocks,cin,cout", [(203, 256, 128), (405, 256, 64), (1213, 128, 64)])
+@pytest.mark.parametrize("blocks,cin,cout", [
+    (203, 256, 128), (405, 256, 64), (1213, 128, 64),
+    (611, 192, 64),  # ResUNetBN2B's conv3_tr, ResUNetBN2D's conv2_tr
+    (2053, 256, 128),  # ResUNetBN2E's conv2_tr, level 0
+])
 def test_up_conv_kernel_matches_plain_on_gpu(cuda_device, blocks, cin, cout):
     """Absent region cells, whole padding blocks and a block count that is
     no multiple of the kernel's four blocks per thread block."""
@@ -468,7 +483,11 @@ def _dead_run_mask(blocks, device):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("blocks,cin,cout", [(203, 256, 128), (405, 256, 64), (1213, 128, 64)])
+@pytest.mark.parametrize("blocks,cin,cout", [
+    (203, 256, 128), (405, 256, 64), (1213, 128, 64),
+    (611, 192, 64),  # ResUNetBN2B's conv3_tr, ResUNetBN2D's conv2_tr
+    (2053, 256, 128),  # ResUNetBN2E's conv2_tr, level 0
+])
 def test_up_conv_kernel_dead_runs_on_gpu(cuda_device, blocks, cin, cout):
     """Runs of dead fine blocks, a dead block between live ones and a block
     count that is no multiple of the blocks per thread block; the dead

@@ -169,3 +169,46 @@ def test_estimator_matches_jax():
     T, o, _ = est.yohoo_ransac(t(perm), t(Th), t(valid), t(k0), t(k1), t(scores), t(valid), 0.1, 50)
     assert np.abs(T.numpy() - np.asarray(T_j)).max() <= TOL
     assert abs(float(o) - float(o_j)) <= 1e-6
+
+
+def test_so3_gather_matches_jax():
+    from roreg_tpu.models.ops import so3_gather as jgather
+    from roreg_tpu_torch.models.ops import GroupConv, so3_gather
+
+    nei = get_group(G).nei13
+    x = _feats(np.random.default_rng(5), 6)
+    ref = np.asarray(jgather(jnp.asarray(x), jnp.asarray(nei)))
+    out = so3_gather(torch.from_numpy(x), torch.from_numpy(nei).long())
+    assert out.shape == ref.shape == (6, G, nei.shape[1], 32) and np.array_equal(out.numpy(), ref)
+    # GroupConv gathers through it: its output is the linear map of the gathered rows
+    conv = GroupConv(32, 8, nei)
+    with torch.no_grad():
+        want = out.reshape(6, G, -1) @ conv.weight.T + conv.bias
+        assert torch.equal(conv(torch.from_numpy(x)), want)
+
+
+def test_des_to_dr_index_matches_jax(heads):
+    from roreg_tpu.models.gf import GFOutput as JGFOutput
+    from roreg_tpu.models.gf import des_to_dr_index as jdes
+    from roreg_tpu_torch.models.gf import GFOutput, des_to_dr_index
+
+    assert GFOutput is JGFOutput is dict
+    jg, v, nets = heads
+    rng = np.random.default_rng(6)
+    x0 = _feats(rng, 40)
+    cay = get_group(G).cayley
+    # cloud 1: cloud 0 permuted by known group elements, so each row has a true index
+    a = rng.integers(0, G, size=40)
+    x1 = np.stack([x0[i][cay[a[i]]] for i in range(40)]) + 0.01 * rng.normal(size=x0.shape).astype(np.float32)
+    with torch.no_grad():
+        out0, out1 = (nets["gf"](torch.from_numpy(x)) for x in (x0, x1))
+    assert isinstance(out0, GFOutput)
+    e0, e1 = out0["eqv"], out1["eqv"]
+    ref = np.asarray(jdes(jnp.asarray(e0.numpy()), jnp.asarray(e1.numpy()), jnp.asarray(cay)))
+    idx = des_to_dr_index(e0, e1, torch.from_numpy(cay).long()).numpy()
+    assert np.array_equal(idx, ref)
+    # ties: equal correlations take the first maximum, as jnp.argmax does
+    flat = np.ones((3, G, 32), np.float32)
+    tie_ref = np.asarray(jdes(jnp.asarray(flat), jnp.asarray(flat), jnp.asarray(cay)))
+    tie = des_to_dr_index(torch.from_numpy(flat), torch.from_numpy(flat), torch.from_numpy(cay).long()).numpy()
+    assert np.array_equal(tie, tie_ref) and (tie == 0).all()

@@ -62,3 +62,28 @@ def test_batched_slots_and_refill_byte_equal():
 def test_library_built_in_port_build_dir():
     assert os.path.exists(os.path.join(BUILD_DIR, "libvoxelhash.so"))
     assert os.path.dirname(BUILD_DIR).endswith("roreg_tpu_torch")
+
+
+@pytest.mark.parametrize("n0,n1,thre", [(300, 250, 0.08), (40, 500, 0.2), (1, 1, 1.0)])
+def test_mutual_pairs_host_matches_jax(n0, n1, thre):
+    """The C pairing bound in the port against the JAX package's, on keys1
+    and a noisy moved copy of part of it."""
+    from roreg_tpu.native import lib as jlib
+    from roreg_tpu_torch.native.lib import mutual_pairs_host
+
+    rng = np.random.default_rng(n0 + n1)
+    k1 = rng.uniform(0, 1, size=(n1, 3)).astype(np.float32)
+    k0 = np.concatenate([k1[: n0 // 2] + 0.01 * rng.normal(size=(n0 // 2, 3)),
+                         rng.uniform(0, 1, size=(n0 - n0 // 2, 3))]).astype(np.float32)
+    out = mutual_pairs_host(k0, k1, thre)
+    ref = jlib.mutual_pairs_host(k0, k1, thre)
+    assert out.dtype == np.int32 and out.shape[1:] == (2,)
+    assert np.array_equal(out, ref)
+    assert len(out) >= min(n0 // 2, 1)
+
+
+def test_mutual_pairs_host_empty_side():
+    from roreg_tpu_torch.native.lib import mutual_pairs_host
+
+    assert mutual_pairs_host(np.zeros((0, 3), np.float32), np.ones((5, 3), np.float32), 0.1).shape == (0, 2)
+    assert mutual_pairs_host(np.ones((5, 3), np.float32), np.zeros((0, 3), np.float32), 0.1).shape == (0, 2)
