@@ -38,13 +38,16 @@ Phases, each ending in one flushed progress line on stderr:
    conv kernel against its f32 plain version, within ``F32_RTOL`` of the
    output's largest magnitude: gather_conv at phase 3's 11 shapes (its
    f32 entry, which splits each gathered f32 row on chip), dgrad and
-   wgrad at phase 3d's 20 convs (a launch per bf16 term of W or X), and
+   wgrad at phase 3d's 20 convs (their f32 entries, one launch a call:
+   dgrad's W split in its one packing, wgrad's X split on chip; a second
+   call's gap and the library composites at f32 beside), and
    block_gather (f32 rows), halo_conv (its f32 entry, each halo row split
    on chip) and up_conv (its f32 entry, a loop over the terms) at phase
    3b's shapes and at the bench's block capacities; error, times beside
-   the bf16 rows, bounds at f32 operand bytes, and for gather_conv and
-   halo_conv the device memory a call takes beyond its output and packed
-   weights (none: no split copy of the features); each f32 conv call's
+   the bf16 rows, bounds at f32 operand bytes, and for gather_conv,
+   halo_conv, dgrad and wgrad the device memory a call takes beyond its
+   output and packed weights or scratch (none: no split copy of the
+   features, no second output); each f32 conv call's
    device time under ``torch.profiler``, split into its kernel and
    everything else it launches (the weight packing, up_conv's operand
    split), summed over one chunk's forward;
@@ -130,7 +133,8 @@ Phases, each ending in one flushed progress line on stderr:
    conv kernel and of everything else, and the device busy share;
 11c. f32 backbone training: ``cli.train --component backbone`` at
    ``backbone_compute_dtype=None`` for ``BACKBONE_F32_STEPS`` steps (a step
-   launches gather_conv 40, dgrad 80 and wgrad 80 times), every loss
+   launches gather_conv 40, dgrad 40 and wgrad 40 times: one launch a
+   call, as at bf16), every loss
    finite, and the 12-step overfit at f32 must lower the loss;
 11b. zoo: each ``RESUNET_VARIANTS`` and ``SIMPLENET_VARIANTS`` entry's
    gather-engine forward on one full-width pyramid of cloud 0, kernels
@@ -336,24 +340,33 @@ def cuda_ms(fn, reps: int, warmup: int = 2, flush: torch.Tensor | None = None) -
     return sum(s.elapsed_time(e) for s, e in spans) / reps
 
 
-def device_ms_by_tag(fn, tags: dict, reps: int = 5) -> dict:
+def device_ms_by_tag(fn, tags: dict, reps: int = 5, windows: int = 3) -> dict:
     """Device milliseconds of one warm call of ``fn`` under
     ``torch.profiler`` (mean over ``reps``): for each ``name: tag`` of
     ``tags``, the kernels whose names hold the tag (each must have run),
-    and under ``"other"`` everything else the call launches."""
+    and under ``"other"`` everything else the call launches. A window
+    whose records lack a tag is profiled again, up to ``windows`` times
+    (on the card a window has come back without one of its kernels, the
+    same kernel recorded in the windows before and after it); then it
+    fails, naming what was recorded."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     cuda = torch.autograd.DeviceType.CUDA
-    device = [e for e in prof.events() if e.device_type == cuda]
-    missing = [t for t in tags.values() if not any(t in e.name for e in device)]
-    if missing:
-        raise AssertionError(f"the profiler recorded no {missing} on the device")
+    for _ in range(windows):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.events() if e.device_type == cuda]
+        missing = [t for t in tags.values() if not any(t in e.name for e in device)]
+        if not missing:
+            break
+    else:
+        names = sorted({e.name[:80] for e in device})
+        raise AssertionError(f"the profiler recorded no {missing} on the device in {windows} windows; it "
+                             f"recorded {names}")
     ms = {n: sum(e.time_range.elapsed_us() for e in device if t in e.name) / 1e3 / reps for n, t in tags.items()}
     ms["other"] = sum(e.time_range.elapsed_us() for e in device
                       if not any(t in e.name for t in tags.values())) / 1e3 / reps
@@ -550,11 +563,15 @@ def phase_bwd_kernels(cfg, pair: dict, seed: int, device: str = "cuda",
                       dtype: torch.dtype = torch.bfloat16) -> tuple[dict, list]:
     """Phase 3d: dgrad and wgrad against their plain versions at the 20
     conv shapes of one full-width training forward (one cloud's host
-    pyramid). At f32 (phase 3e) each call runs its kernel once per bf16
-    term of W (dgrad) or X (wgrad); the error is relative to the output's
-    largest magnitude, the bound at f32 operand bytes, and neither the
-    library composite nor a second launch is timed. Returns (totals per
-    kernel over the 20 convs, rows)."""
+    pyramid). At f32 (phase 3e) each call launches its f32 entry once; the
+    error and a second call's gap are relative to the output's largest
+    magnitude (both within ``F32_RTOL``), the bound is at f32 operand
+    bytes, the library composites run in f32 (the caller turns TF32 off)
+    and their sum is also the totals' ``library_ms``, each call's device
+    memory beyond its output and packed weights or scratch is measured,
+    and its device time under ``torch.profiler`` is split into its
+    kernels and the rest it launches. Returns (totals per kernel over the
+    20 convs, rows)."""
     from roreg_tpu_torch.kernels.gather_conv import (
         bwd_work, gather_conv_dgrad_kernel, gather_conv_dgrad_plain,
         gather_conv_wgrad_kernel, gather_conv_wgrad_plain,
@@ -569,8 +586,10 @@ def phase_bwd_kernels(cfg, pair: dict, seed: int, device: str = "cuda",
     caps = cfg.capacities
     gen = torch.Generator(device=dev).manual_seed(seed)
     l2_flush = torch.empty(256 << 20, dtype=torch.uint8, device=dev)
-    keys = ("ms", "warm_l2_ms", "plain_ms", "composite_ms", "bound_ms", "ops_ms", "bytes_ms")
-    totals = {n: {**dict.fromkeys(keys, 0.0), "err": 0.0, "mean_err": 0.0, "rerun_gap": 0.0}
+    keys = ("ms", "warm_l2_ms", "plain_ms", "composite_ms", "bound_ms", "ops_ms", "bytes_ms") + (
+        ("kernel_device_ms", "other_device_ms") if f32 else ())
+    totals = {n: {**dict.fromkeys(keys, 0.0), "err": 0.0, "mean_err": 0.0, "rerun_gap": 0.0,
+                  **({"extra_bytes": 0} if f32 else {})}
               for n in ("gather_conv_dgrad", "gather_conv_wgrad")}
     rows = []
     for (kind, lvl), cin, cout, uses in CONV_SHAPES:
@@ -589,22 +608,38 @@ def phase_bwd_kernels(cfg, pair: dict, seed: int, device: str = "cuda",
             diff = (out_k - out_p).abs()
             err, mean_err = float(diff.max()), float(diff.mean())
             checked = _f32_err(out_k, out_p) if f32 else err
-            rerun = float((out_k - again).abs().max())
+            rerun = _f32_err(again, out_k) if f32 else float((out_k - again).abs().max())
             label = f"{kind}[{lvl}] {cin}->{cout} M={nbr.shape[0]} N={n_src} {str(dtype)[6:]}"
             if not np.isfinite(checked) or checked > tol:
                 raise AssertionError(f"{name} {label}: {'relative' if f32 else 'max abs'} err {checked} > {tol}")
+            if f32 and not rerun <= tol:
+                raise AssertionError(f"{name} {label}: a second call differs by {rerun} (relative) > {tol}")
             del again, out_p
             composite = _COMPOSITES[name]
-            comp_err = None if f32 else float((composite(feats, nbr, w, dy) - out_k).abs().max())
+            comp_err = float((composite(feats, nbr, w, dy) - out_k).abs().max())
             row = {"kernel": name, "shape": label, "uses": uses, "max_abs_err": err, "mean_abs_err": mean_err,
                    "checked_err": checked, "rerun_gap": rerun, "composite_err": comp_err,
                    "ms": cuda_ms(lambda: kernel(feats, nbr, w, dy), reps=20, flush=l2_flush),
                    "warm_l2_ms": cuda_ms(lambda: kernel(feats, nbr, w, dy), reps=20),
                    "plain_ms": cuda_ms(lambda: plain(feats, nbr, w, dy), reps=1 if f32 else 3,
                                        warmup=0 if f32 else 1, flush=l2_flush),
-                   "composite_ms": 0.0 if f32 else cuda_ms(lambda: composite(feats, nbr, w, dy), reps=5,
-                                                            warmup=1, flush=l2_flush),
-                   **kernel.launch_shape(nbr.shape[0], cin, cout, 27)}
+                   "composite_ms": cuda_ms(lambda: composite(feats, nbr, w, dy), reps=5, warmup=1,
+                                           flush=l2_flush),
+                   **kernel.launch_shape(nbr.shape[0], cin, cout, 27, f32)}
+            if f32:
+                # the launch's operands beside its output: dgrad's packed
+                # weights (and dY as it is), wgrad's dY scratch (and X as it is)
+                scratch = row["scratch_bytes"]
+                operands = ((lambda: kernel.operands(feats, w, dy)) if name == "gather_conv_dgrad" else
+                            (lambda: torch.empty(scratch, dtype=torch.uint8, device=dev)))
+                row["extra_bytes"] = _extra_bytes(lambda: kernel(feats, nbr, w, dy), operands, name)
+                # device time of the call's kernels (wgrad's split pass and
+                # kernel) and of the rest it launches (dgrad's weight packing)
+                tags = ({"dgrad": "dgrad_kernel"} if name == "gather_conv_dgrad" else
+                        {"split_pass": "wgrad_split_kernel", "wgrad": "wgrad_kernel"})
+                dev_ms = device_ms_by_tag(lambda: kernel(feats, nbr, w, dy), tags)
+                row["kernel_device_ms"] = sum(dev_ms[t] for t in tags)
+                row["other_device_ms"] = dev_ms["other"]
             work = bwd_work(name.rsplit("_", 1)[1], nbr, n_src, cin, cout, 4 if f32 else 2)
             # bound at the tensor cores' TF32 rate: dY stays f32, its partner
             # (W or X) is bf16
@@ -615,22 +650,30 @@ def phase_bwd_kernels(cfg, pair: dict, seed: int, device: str = "cuda",
                 t[k] += uses * row[k]
             t["err"], t["rerun_gap"] = max(t["err"], checked), max(t["rerun_gap"], rerun)
             t["mean_err"] = max(t["mean_err"], mean_err)
+            if f32:
+                t["extra_bytes"] = max(t["extra_bytes"], row["extra_bytes"])
             rows.append(row)
-            comp = "" if f32 else f"composite {row['composite_ms']:.3f} ms (err {comp_err:.1e}) "
+            extra = (f"{row['extra_bytes']} bytes beyond output and operands, device time kernel "
+                     f"{row['kernel_device_ms']:.3f} ms and the rest {row['other_device_ms']:.3f} ms; " if f32 else "")
             progress(f"  {name:17s} {label:45s} err max {checked:.2e}{' (relative)' if f32 else ''} mean {mean_err:.2e} "
                      f"(rerun gap {rerun:.1e}) "
                      f"kernel {row['ms']:.3f} ms (warm L2 {row['warm_l2_ms']:.3f}) plain {row['plain_ms']:.3f} ms "
-                     f"{comp}"
+                     f"composite {row['composite_ms']:.3f} ms (err {comp_err:.1e}) {extra}"
                      f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), {row['tflops']:.2f} TFLOP/s; "
                      f"{row['blocks']} thread blocks, {row.get('offsets_per_block', row.get('rows_per_block'))} "
-                     f"{'offsets' if 'offsets_per_block' in row else 'rows'} each, {row['stages']} stages")
+                     f"{'offsets' if 'offsets_per_block' in row else 'rows'} each, {row['stages']} stages, "
+                     f"{row['smem_bytes']} bytes of shared memory")
     for t in totals.values():
         t["bound_by"] = "operations" if t["ops_ms"] >= t["bytes_ms"] else "bytes"
+        if f32:
+            t["library_ms"] = t["composite_ms"]
     progress(f"phase {'3e f32' if f32 else '3d'} backward kernels, one full-width forward's 20 convs: " + "; ".join(
         f"{n} kernel {t['ms']:.3f} ms, plain {t['plain_ms']:.2f} ms, library composite {t['composite_ms']:.3f} ms, "
         f"bound {t['bound_ms']:.4f} ms "
         f"({t['bound_by']}), max err {t['err']:.1e}, mean err {t['mean_err']:.1e}, rerun gap {t['rerun_gap']:.1e} "
-        f"(tol {tol})" for n, t in totals.items()))
+        f"(tol {tol})" + (f", device time by the profiler: kernel {t['kernel_device_ms']:.3f} ms, everything else "
+                          f"the calls launch {t['other_device_ms']:.3f} ms" if f32 else "")
+        for n, t in totals.items()))
     return totals, rows
 
 
@@ -1801,9 +1844,9 @@ def phase_backbone_train_f32(seed: int, device: str = "cuda") -> dict:
     """Phase 11c: ``cli.train --component backbone`` with the CLI's
     ``PipelineConfig`` at ``backbone_compute_dtype=None`` (f32 convs on the
     card) for ``BACKBONE_F32_STEPS`` steps: every loss finite, a step
-    launching gather_conv 40 times (one a conv: its f32 entry) and dgrad
-    and wgrad 80 times each (one a bf16 term of W or
-    X); then the 12-step overfit at f32 must lower the loss."""
+    launching gather_conv, dgrad and wgrad 40 times each (one a call:
+    their f32 entries); then the 12-step overfit at f32 must lower the
+    loss."""
     import contextlib
     import functools
     import tempfile
@@ -1813,7 +1856,7 @@ def phase_backbone_train_f32(seed: int, device: str = "cuda") -> dict:
     from roreg_tpu_torch.train.backbone import backbone_pair_batches, make_backbone_train_step
 
     kernels = _kernels()
-    per_step = {"gather_conv": 40, "gather_conv_dgrad": 80, "gather_conv_wgrad": 80}
+    per_step = {"gather_conv": 40, "gather_conv_dgrad": 40, "gather_conv_wgrad": 40}
     f32_cfg = functools.partial(PipelineConfig, backbone_compute_dtype=None)
     out: dict = {}
     with tempfile.TemporaryDirectory(prefix="roreg_backbone_f32_") as tmp:

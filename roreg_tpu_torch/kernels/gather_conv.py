@@ -15,10 +15,10 @@ versions (autograd through :func:`gather_conv_plain`) on the CPU; the
 gathered ``(M, K, Cin)`` matrix is never saved. The kernels are built with
 ``nvcc`` into the port's build directory at first use and bound with
 ``ctypes``. Operands are bf16 or f32: f32 ones run as two bf16 terms each
-(``kernels/split.py``): the forward through the kernel's f32 entry, which
-reads each gathered f32 row once and splits it on chip (the weights come
-split and packed by :func:`pack_split_weights`),
-dgrad and wgrad as one launch per term of the operand they read as bf16.
+(``kernels/split.py``) through each kernel's f32 entry, one launch a call:
+the forward and wgrad read each gathered f32 row once and split it on
+chip, and the forward's and dgrad's weights come split and packed once
+(:func:`pack_split_weights`, :func:`pack_dgrad_split_weights`).
 """
 
 from __future__ import annotations
@@ -46,8 +46,8 @@ __all__ = [
     "bwd_work",
     "bwd_kernel_widths",
     "pack_dgrad_weights",
+    "pack_dgrad_split_weights",
     "pack_split_weights",
-    "split_bf16x3",
     "DGRAD_CINS",
     "DGRAD_CI_TILE",
 ]
@@ -250,20 +250,6 @@ DGRAD_CINS = (32, 64, 128, 256)
 DGRAD_CI_TILE = 128
 
 
-def split_bf16x3(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """The backward kernels' split of an f32 tensor into three bf16 terms
-    (``csrc/hopper.cuh`` ``split_bf16x3``): ``hi = bf16(t)``, ``mid =
-    bf16(t - hi)``, ``lo = bf16(t - hi - mid)``, each difference exact in
-    f32, so ``hi + mid + lo`` is within ``2**-24 * |t|`` of ``t`` and the
-    three products with a bf16 operand, summed in f32, keep f32's
-    precision."""
-    t = t.float()
-    hi = t.bfloat16()
-    r = t - hi.float()
-    mid = r.bfloat16()
-    return hi, mid, (r - mid.float()).bfloat16()
-
-
 def pack_dgrad_weights(weights: torch.Tensor) -> torch.Tensor:
     """dgrad's B operand: ``weights[k]^T`` zero-padded to (Cout_p, Cin_p),
     Cout_p the next multiple of 32 and Cin_p the next of ``DGRAD_CINS``,
@@ -280,6 +266,31 @@ def pack_dgrad_weights(weights: torch.Tensor) -> torch.Tensor:
     # one copy: (k, ci, co) -> (k, ci // T, co // 16, ci % T // 8, co % 16 // 8, ci % 8, co % 8)
     return (weights.view(k, cin_p // tile, tile // 8, 8, cout_p // 16, 2, 8)
             .permute(0, 1, 4, 2, 5, 3, 6).contiguous())
+
+
+def pack_dgrad_split_weights(weights: torch.Tensor) -> torch.Tensor:
+    """(K, Cin, Cout) f32 -> dgrad's f32 entry's B operand: the two bf16
+    terms ``Wh, Wl`` of ``split_bf16x2(weights)``, each laid out as
+    :func:`pack_dgrad_weights` lays out bf16 weights, with each 32-row
+    Cout slot of Wl^T right after the same slot of Wh^T: (K, Cin_p/T,
+    Cout_p/32, 2, 2, T/8, 2, 8, 8), (offset, channel tile, slot, term,
+    16-row stage, ...). Each term is written into place by one strided
+    copy: Wh rounded in its copy, Wl from the f32 difference ``w - Wh``
+    (exact; the one temporary), three launches in all."""
+    k, cin, cout = weights.shape
+    cin_p, cout_p = next(c for c in DGRAD_CINS if c >= cin), -(-cout // 32) * 32
+    w = weights.float()
+    if (cin_p, cout_p) != (cin, cout):
+        w = torch.nn.functional.pad(w, (0, cout_p - cout, 0, cin_p - cin))
+    tile = min(cin_p, DGRAD_CI_TILE)
+    out = torch.empty((k, cin_p // tile, cout_p // 32, 2, 2, tile // 8, 2, 8, 8), dtype=torch.bfloat16,
+                      device=w.device)
+    # out seen in w's order: (term, k, ci // T, ci % T // 8, ci % 8, co // 32, co % 32 // 16, co % 16 // 8, co % 8)
+    terms = out.permute(3, 0, 1, 5, 7, 2, 4, 6, 8)
+    src = w.view(k, cin_p // tile, tile // 8, 8, cout_p // 32, 2, 2, 8)
+    terms[0].copy_(src)
+    terms[1].copy_(src - terms[0])
+    return out
 
 
 def _pad_cols(t: torch.Tensor, width: int) -> torch.Tensor:
@@ -307,44 +318,63 @@ class GatherConvBwdKernel(CudaKernel):
     (``which`` is "dgrad" or "wgrad"): checks its arguments, pads the
     widths the kernel does not take (:func:`bwd_kernel_widths`; the extra
     columns are cut off the output), packs dgrad's weights and allocates
-    wgrad's scratch, launches on the current stream, and counts launches
-    in ``launches`` (one per call, nowhere else; wgrad's call runs a split
-    pass before its kernel)."""
+    wgrad's scratch, launches the bf16 or the f32 entry on the current
+    stream, and counts launches in ``launches`` (one per call at either
+    type, nowhere else; wgrad's call runs a split pass before its
+    kernel)."""
 
     source = "gather_conv_bwd.cu"
 
     def __init__(self, which: str) -> None:
         super().__init__()
         self.which = which
-        self._shapes: dict[tuple[int, int, int, int], dict] = {}
+        self._shapes: dict[tuple[int, int, int, int, bool], dict] = {}
 
     def _bind(self, lib: ctypes.CDLL) -> None:
         vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.gather_conv_dgrad.restype = ci
-        lib.gather_conv_dgrad.argtypes = [vp, vp, vp, vp, i64, i64, ci, ci, ci, vp]
-        lib.gather_conv_wgrad.restype = ci
-        lib.gather_conv_wgrad.argtypes = [vp, vp, vp, vp, vp, i64, i64, ci, ci, ci, vp]
+        for entry in (lib.gather_conv_dgrad, lib.gather_conv_dgrad_f32):
+            entry.restype = ci
+            entry.argtypes = [vp, vp, vp, vp, i64, i64, ci, ci, ci, vp]
+        for entry in (lib.gather_conv_wgrad, lib.gather_conv_wgrad_f32):
+            entry.restype = ci
+            entry.argtypes = [vp, vp, vp, vp, vp, i64, i64, ci, ci, ci, vp]
         lib.gather_conv_bwd_launch_shape.restype = ci
-        lib.gather_conv_bwd_launch_shape.argtypes = [
-            ci, i64, ci, ci, ci, ctypes.POINTER(i64), ctypes.POINTER(ci), ctypes.POINTER(ci),
-            ctypes.POINTER(i64)]
+        pi, pi64 = ctypes.POINTER(ci), ctypes.POINTER(i64)
+        lib.gather_conv_bwd_launch_shape.argtypes = [ci, i64, ci, ci, ci, ci, pi64, pi, pi, pi64, pi]
 
-    def launch_shape(self, m: int, cin: int, cout: int, k: int) -> dict:
-        """The launch shape of a call with an (m, k) table at these widths:
-        thread blocks, offsets (dgrad) or rows (wgrad) a thread block, slots
-        of its ring, and wgrad's scratch bytes (the split dY terms)."""
-        key = (m, cin, cout, k)
+    def launch_shape(self, m: int, cin: int, cout: int, k: int, f32: bool = False) -> dict:
+        """The launch shape of a call of the bf16 or the f32 entry with an
+        (m, k) table at these widths: thread blocks, offsets (dgrad) or rows
+        (wgrad) a thread block, slots of its ring, wgrad's scratch bytes
+        (the split dY terms), and dynamic shared memory bytes."""
+        key = (m, cin, cout, k, f32)
         if key not in self._shapes:
             kin, kout = bwd_kernel_widths(self.which, cin, cout)
             blocks, scratch = ctypes.c_int64(), ctypes.c_int64()
-            per, stages = ctypes.c_int(), ctypes.c_int()
+            per, stages, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
             rc = self._load().gather_conv_bwd_launch_shape(
-                0 if self.which == "dgrad" else 1, m, kin, kout, k, blocks, per, stages, scratch)
+                0 if self.which == "dgrad" else 1, m, kin, kout, k, int(f32), blocks, per, stages, scratch,
+                smem)
             self.check_rc(f"gather_conv {self.which}", rc)
             self._shapes[key] = {
                 "blocks": blocks.value, "offsets_per_block" if self.which == "dgrad" else "rows_per_block":
-                per.value, "stages": stages.value, "scratch_bytes": scratch.value}
+                per.value, "stages": stages.value, "scratch_bytes": scratch.value, "smem_bytes": smem.value}
         return dict(self._shapes[key])
+
+    def operands(self, feats: torch.Tensor, weights: torch.Tensor,
+                 dy: torch.Tensor) -> tuple[str, torch.Tensor, torch.Tensor]:
+        """The C entry for these operand types and the two operands it
+        reads besides the table, at the launch's widths: dgrad dY and the
+        packed weights (:func:`pack_dgrad_weights`, or at f32
+        :func:`pack_dgrad_split_weights`), wgrad the features as they are
+        (bf16 or f32: no split copy) and dY."""
+        f32 = feats.dtype == torch.float32
+        entry = f"gather_conv_{self.which}" + ("_f32" if f32 else "")
+        kin, kout = bwd_kernel_widths(self.which, feats.shape[1], weights.shape[2])
+        if self.which == "dgrad":
+            pack = pack_dgrad_split_weights if f32 else pack_dgrad_weights
+            return entry, _aligned(_pad_cols(dy, kout)), pack(weights)
+        return entry, _aligned(_pad_cols(feats, kin)), dy
 
     def __call__(
         self, feats: torch.Tensor, nbr: torch.Tensor, weights: torch.Tensor, dy: torch.Tensor
@@ -352,9 +382,9 @@ class GatherConvBwdKernel(CudaKernel):
         """feats (N, Cin) and weights (K, Cin, Cout), both bf16 or both f32
         (dgrad reads only the shape of feats, wgrad only the shape of
         weights), nbr (M, K) int32, dy (M, Cout) f32 -> dX (N, Cin) or dW
-        (K, Cin, Cout) f32. At f32 the operand the kernel reads as bf16 (W
-        for dgrad, X for wgrad) is split into two bf16 terms, the kernel
-        runs once per term, and the two f32 results are summed."""
+        (K, Cin, Cout) f32, in one launch: at f32 the operand the bf16
+        entry reads as bf16 (W for dgrad, X for wgrad) goes to the f32
+        entry, which splits it into two bf16 terms."""
         f32 = feats.dtype == weights.dtype == torch.float32
         if not f32 and (feats.dtype != torch.bfloat16 or weights.dtype != torch.bfloat16):
             raise TypeError(f"gather_conv {self.which} kernel takes bf16 or f32 feats and weights "
@@ -378,37 +408,21 @@ class GatherConvBwdKernel(CudaKernel):
         for name, t in (("feats", feats), ("nbr", nbr), ("weights", weights), ("dy", dy)):
             if not t.is_contiguous():
                 raise ValueError(f"gather_conv {self.which} kernel: {name} must be contiguous")
-        read = weights if self.which == "dgrad" else feats  # the operand read as bf16
-        terms = split_bf16x2(read) if f32 else (read,)
-        out = None
-        for term in terms:
-            part = self._launch(term, nbr, dy, n, c, cout, k)
-            out = part if out is None else out.add_(part)
-        return out
-
-    def _launch(self, read: torch.Tensor, nbr: torch.Tensor, dy: torch.Tensor, n: int, c: int,
-                cout: int, k: int) -> torch.Tensor:
-        """One launch with the bf16 operand ``read``: the weights (K, Cin,
-        Cout) for dgrad, the features (N, Cin) for wgrad."""
-        m = nbr.shape[0]
-        dev = dy.device
         kin, kout = bwd_kernel_widths(self.which, c, cout)
         lib = self._load()
         with torch.cuda.device(dev):
             stream = torch.cuda.current_stream(dev).cuda_stream
+            entry, a, b = self.operands(feats, weights, dy)
             if self.which == "dgrad":
-                dy_k = _aligned(_pad_cols(dy, kout))
-                wt = pack_dgrad_weights(read)
                 out = torch.empty((n, kin), dtype=torch.float32, device=dev)
-                rc = lib.gather_conv_dgrad(dy_k.data_ptr(), nbr.data_ptr(), wt.data_ptr(),
-                                           out.data_ptr(), m, n, kin, kout, k, stream)
+                rc = getattr(lib, entry)(a.data_ptr(), nbr.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                         m, n, kin, kout, k, stream)
             else:
-                x = _aligned(_pad_cols(read, kin))
-                scratch = torch.empty(self.launch_shape(m, c, cout, k)["scratch_bytes"],
+                scratch = torch.empty(self.launch_shape(m, c, cout, k, f32)["scratch_bytes"],
                                       dtype=torch.uint8, device=dev)
                 out = torch.empty((k, kin, cout), dtype=torch.float32, device=dev)
-                rc = lib.gather_conv_wgrad(x.data_ptr(), nbr.data_ptr(), dy.data_ptr(), out.data_ptr(),
-                                           scratch.data_ptr(), m, n, kin, cout, k, stream)
+                rc = getattr(lib, entry)(a.data_ptr(), nbr.data_ptr(), b.data_ptr(), out.data_ptr(),
+                                         scratch.data_ptr(), m, n, kin, cout, k, stream)
         self.check_rc(f"gather_conv {self.which}", rc)
         self.launches += 1
         if kin != c:

@@ -1,20 +1,27 @@
 """f32 operands on the bf16 tensor cores: the two-term split.
 
-The forward conv kernels multiply bf16 operands into f32 accumulators. An
-f32 operand ``t`` is carried as two bf16 terms, ``hi = bf16(t)`` and ``lo =
+The conv kernels multiply bf16 operands into f32 accumulators. An f32
+operand ``t`` is carried as two bf16 terms, ``hi = bf16(t)`` and ``lo =
 bf16(t - hi)`` (the difference is exact in f32), which leave about 2^-18
 of ``t``. A product ``X @ W`` of two split operands is computed as the
 three products ``Xh @ Wh + Xh @ Wl + Xl @ Wh``; the dropped ``Xl @ Wl`` is
 as small as what the split leaves, so each product is off by about 3 *
 2^-18 (1e-5) of its magnitude, where one bf16 rounding of each operand is
-off by about 2^-8 and TF32 by about 2^-10.
+off by about 2^-8 and TF32 by about 2^-10. The gradients follow the same
+rule with dY as the other operand: dgrad runs ``dYh Wh + dYh Wl + dYm Wh``
+and wgrad ``dYh Xh + dYh Xl + dYm Xh``, ``dYh, dYm`` being dY's two terms
+(the first two of the three that their bf16 entries carry); the dropped
+products are each under 2^-17 of a product.
 
-``gather_conv`` and ``halo_conv`` have f32 entries that read each f32
-feature row once and split it on chip, with the weights' terms packed as
-``[Wh ; Wl]`` slots (each module's ``pack_split_weights``);
-``up_conv`` runs the three products as a loop over the terms inside its
-kernel; dgrad and wgrad launch once per term of the operand they read as
-bf16 (W for dgrad, X for wgrad) and sum.
+Two designs carry the rule:
+
+- on chip, one launch a call (``gather_conv``, ``halo_conv``, and the
+  gradient's dgrad and wgrad): the kernel reads each f32 row it gathers
+  or stages (features, dY) once and splits it there; the weights' terms come
+  split and packed once as ``[Wh ; Wl]`` slots (each module's
+  ``pack_split_weights``, and ``pack_dgrad_split_weights`` for dgrad);
+- on the host (``up_conv``): its wrapper splits the gathered region into
+  two bf16 copies and its kernel loops over the terms.
 """
 
 from __future__ import annotations

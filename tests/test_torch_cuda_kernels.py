@@ -851,15 +851,30 @@ def test_gather_conv_kernel_f32_on_gpu(exact_f32, cin, cout, kvol, launches):
         assert shape["smem_bytes"] <= 102400 + 16 * shape["stages"] or (f32 and cout == 256)
 
 
+def _peak_above(fn):
+    """``fn()`` and the device memory its call took at its peak beyond what
+    was allocated before it."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    res = fn()
+    torch.cuda.synchronize()
+    return res, torch.cuda.max_memory_allocated() - base
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("cin,cout,kvol", [(32, 32, 27), (256, 256, 27), (48, 24, 7)])
 def test_gather_conv_bwd_kernels_f32_on_gpu(exact_f32, cin, cout, kvol):
-    """dgrad and wgrad with f32 operands: each launches once per bf16 term
-    of the operand it reads as bf16 (W for dgrad, X for wgrad), and the
-    summed results are within ``F32_RTOL`` of the f32 plain versions."""
+    """dgrad and wgrad with f32 operands: one launch of the f32 entry per
+    call (W or X split into two bf16 terms on chip or in dgrad's one weight
+    packing), within ``F32_RTOL`` of the f32 plain versions, a second call
+    within ``F32_RTOL`` of the first (f32 atomics: not bit-equal), and no
+    device memory beyond the launch's output (and its cut, where the width
+    was padded), the packed weights and wgrad's dY scratch: no split copy
+    of W or X, no second output (either would take over 300 KB here)."""
     from roreg_tpu_torch.kernels.gather_conv import (
-        gather_conv_dgrad, gather_conv_dgrad_kernel, gather_conv_dgrad_plain,
-        gather_conv_wgrad, gather_conv_wgrad_kernel, gather_conv_wgrad_plain,
+        bwd_kernel_widths, gather_conv_dgrad, gather_conv_dgrad_kernel, gather_conv_dgrad_plain,
+        gather_conv_wgrad, gather_conv_wgrad_kernel, gather_conv_wgrad_plain, pack_dgrad_split_weights,
     )
 
     dev = exact_f32
@@ -873,11 +888,25 @@ def test_gather_conv_bwd_kernels_f32_on_gpu(exact_f32, cin, cout, kvol):
     before = (gather_conv_dgrad_kernel.launches, gather_conv_wgrad_kernel.launches)
     dx = gather_conv_dgrad(feats, nbr, w, dy)
     dw = gather_conv_wgrad(feats, nbr, w, dy)
-    assert (gather_conv_dgrad_kernel.launches, gather_conv_wgrad_kernel.launches) == (before[0] + 2, before[1] + 2)
+    assert (gather_conv_dgrad_kernel.launches, gather_conv_wgrad_kernel.launches) == (before[0] + 1, before[1] + 1)
+    again_dx, again_dw = gather_conv_dgrad(feats, nbr, w, dy), gather_conv_wgrad(feats, nbr, w, dy)
     torch.cuda.synchronize()
     assert dx.shape == feats.shape and dw.shape == w.shape
     assert _f32_err(dx, gather_conv_dgrad_plain(feats, nbr, w, dy)) <= F32_RTOL
     assert _f32_err(dw, gather_conv_wgrad_plain(feats, nbr, w, dy)) <= F32_RTOL
+    assert _f32_err(again_dx, dx) <= F32_RTOL and _f32_err(again_dw, dw) <= F32_RTOL
+    del again_dx, again_dw
+    scratch = gather_conv_wgrad_kernel.launch_shape(m, cin, cout, kvol, True)["scratch_bytes"]
+    for which, call, operand in (
+            ("dgrad", gather_conv_dgrad, lambda: pack_dgrad_split_weights(w)),
+            ("wgrad", gather_conv_wgrad, lambda: torch.empty(scratch, dtype=torch.uint8, device=dev))):
+        kin = bwd_kernel_widths(which, cin, cout)[0]
+        _, operand_peak = _peak_above(operand)
+        out, peak = _peak_above(lambda: call(feats, nbr, w, dy))
+        launch_out = out.numel() // cin * kin * 4
+        cut = out.numel() * 4 if kin != cin else 0
+        assert peak - launch_out - cut - operand_peak <= 64 << 10, which
+        del out
 
 
 @pytest.mark.cuda

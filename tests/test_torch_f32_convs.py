@@ -8,7 +8,9 @@ operand runs as ``hi + lo`` (``kernels/split.py``): the f32 entries of
 run the three products ``Xh Wh + Xh Wl + Xl Wh`` against the ``[Wh ; Wl]``
 weight slots of each module's ``pack_split_weights``; ``up_conv``'s f32
 entry loops over the terms (the hi region against Wh and Wl, then the lo region
-against Wh); dgrad and wgrad run once per term of W or X. Here each of those is
+against Wh); the f32 entries of dgrad and wgrad run ``dYh Wh + dYh Wl + dYm
+Wh`` and ``dYh Xh + dYh Xl + dYm Xh`` (dY's first two terms), W packed by
+``pack_dgrad_split_weights`` and X split on chip. Here each of those is
 modelled with the plain versions on the bf16 terms (exact products, f32
 sums), at the magnitudes of the card smoke's phase 3b (features of unit
 variance, He-scaled weights), and held to ``F32_RTOL`` of the output's
@@ -153,9 +155,10 @@ def test_term_loop_up_conv_model_matches_jax_f32(pyr, level, cin, cout):
 
 @pytest.mark.parametrize("cin,cout", [(32, 32), (128, 256)])
 def test_bwd_term_models_match_jax_f32_gradients(cin, cout):
-    """dgrad over Wh and Wl, wgrad over Xh and Xl (dY kept to 2^-24 by the
-    kernels' three-term split, modelled here as f32), each pair summed,
-    against JAX's f32 gradients of its gather conv."""
+    """dgrad over Wh and Wl, wgrad over Xh and Xl, with dY as f32 (as the
+    bf16 entries' three-term split keeps it, to 2^-24), each pair summed,
+    against JAX's f32 gradients of its gather conv: the two-term split of
+    W or X alone keeps ``F32_RTOL``."""
     rng = np.random.default_rng(cin + 1)
     feats, nbr, w = _gather_inputs(rng, 900, 700, 27, cin, cout)
     dy = rng.normal(size=(700, cout)).astype(np.float32)
@@ -170,6 +173,86 @@ def test_bwd_term_models_match_jax_f32_gradients(cin, cout):
     assert _rel(dx.numpy(), rdx) <= F32_RTOL and _rel(dw.numpy(), rdw) <= F32_RTOL
     assert _rel(GC.gather_conv_dgrad_plain(x, tb, wt.bfloat16().float(), d).numpy(), rdx) > 10 * F32_RTOL
     assert _rel(GC.gather_conv_wgrad_plain(x.bfloat16().float(), tb, wt, d).numpy(), rdw) > 10 * F32_RTOL
+
+
+@pytest.mark.parametrize("cin,cout", [(32, 32), (128, 256)])
+def test_kept_bwd_products_match_jax_f32_gradients(cin, cout):
+    """The products the f32 entries of dgrad and wgrad keep, ``dYh Wh + dYh
+    Wl + dYm Wh`` and ``dYh Xh + dYh Xl + dYm Xh`` (``dYh, dYm`` the first
+    two of the bf16 entries' three dY terms, which are ``split_bf16x2``'s),
+    against JAX's f32 gradients of its gather conv; the products they drop
+    (dY's third term with Wh or Xh, ``dYm`` with Wl or Xl, the third term
+    with Wl or Xl) sum to under a tenth of ``F32_RTOL``, and the first
+    product alone misses it."""
+    rng = np.random.default_rng(cin + 2)
+    feats, nbr, w = _gather_inputs(rng, 900, 700, 27, cin, cout)
+    dy = rng.normal(size=(700, cout)).astype(np.float32)
+
+    def loss(x, wt):
+        return jnp.sum(jax_gather_conv(x, jnp.asarray(nbr), wt) * jnp.asarray(dy))
+
+    rdx, rdw = (np.asarray(g) for g in jax.grad(loss, argnums=(0, 1))(jnp.asarray(feats), jnp.asarray(w)))
+    x, wt, tb, d = _t(feats), _t(w), _t(nbr), _t(dy)
+    (dh, dm), (wh, wl), (xh, xl) = split_bf16x2(d), split_bf16x2(wt), split_bf16x2(x)
+    dl = (d - dh.float() - dm.float()).bfloat16()
+
+    def dgrad(wterm, dterm):
+        return GC.gather_conv_dgrad_plain(x, tb, wterm.float(), dterm.float())
+
+    def wgrad(xterm, dterm):
+        return GC.gather_conv_wgrad_plain(xterm.float(), tb, wt, dterm.float())
+
+    dx = dgrad(wh, dh) + dgrad(wl, dh) + dgrad(wh, dm)
+    dw = wgrad(xh, dh) + wgrad(xl, dh) + wgrad(xh, dm)
+    assert _rel(dx.numpy(), rdx) <= F32_RTOL and _rel(dw.numpy(), rdw) <= F32_RTOL
+    dropped_dx = dgrad(wh, dl) + dgrad(wl, dm) + dgrad(wl, dl)
+    dropped_dw = wgrad(xh, dl) + wgrad(xl, dm) + wgrad(xl, dl)
+    assert float(dropped_dx.abs().max()) / np.abs(rdx).max() < F32_RTOL / 10
+    assert float(dropped_dw.abs().max()) / np.abs(rdw).max() < F32_RTOL / 10
+    assert _rel(dgrad(wh, dh).numpy(), rdx) > 10 * F32_RTOL
+    assert _rel(wgrad(xh, dh).numpy(), rdw) > 10 * F32_RTOL
+
+
+# (Cin, Cout) of the backbone training path's gather convs (chip_smoke.py
+# CONV_SHAPES), and one that dgrad pads
+TRAIN_WIDTHS = [(32, 32), (32, 64), (64, 64), (64, 128), (128, 128), (128, 256), (256, 256),
+                (256, 128), (256, 64), (128, 64), (48, 24)]
+
+
+@pytest.mark.parametrize("cin,cout", TRAIN_WIDTHS)
+def test_dgrad_split_weights_hold_both_terms_of_each_slot(cin, cout):
+    """``pack_dgrad_split_weights``: each (offset, channel tile, 32-row Cout
+    slot) of the f32 entry's ring holds that slot of
+    ``pack_dgrad_weights(Wh)`` (where dgrad's bf16 entry reads it), then the
+    same slot of ``pack_dgrad_weights(Wl)``, ``(Wh, Wl) =
+    split_bf16x2(w)``, in one bf16 tensor with the padding zero."""
+    w = torch.from_numpy(np.random.default_rng(cin + cout).normal(size=(27, cin, cout)).astype(np.float32))
+    tile = min(next(c for c in GC.DGRAD_CINS if c >= cin), GC.DGRAD_CI_TILE)
+    packed = GC.pack_dgrad_split_weights(w)
+    assert packed.dtype == torch.bfloat16 and packed.is_contiguous()
+    slots = packed.view(-1, 2, 32 * tile)
+    for term, half in zip(split_bf16x2(w), (0, 1)):
+        assert torch.equal(slots[:, half], GC.pack_dgrad_weights(term).view(-1, 32 * tile))
+
+
+@pytest.mark.parametrize("which", ["dgrad", "wgrad"])
+def test_bwd_f32_operands_go_to_the_f32_entries_unsplit(which):
+    """The backward wrappers' operand step: f32 operands go to the f32
+    entry, dgrad's with ``pack_dgrad_split_weights``, wgrad's with the
+    features themselves (nothing made of them: here they lie on the meta
+    device, with no data); bf16 operands to the bf16 entry, dgrad's with
+    ``pack_dgrad_weights``; no launch."""
+    kernel = GC.GatherConvBwdKernel(which)
+    w = torch.from_numpy(np.random.default_rng(2).normal(size=(27, 64, 32)).astype(np.float32))
+    for dtype, pack in ((torch.float32, GC.pack_dgrad_split_weights), (torch.bfloat16, GC.pack_dgrad_weights)):
+        feats, dy = torch.empty(100, 64, device="meta", dtype=dtype), torch.empty(40, 32, device="meta")
+        name, a, b = kernel.operands(feats, w.to(dtype), dy)
+        assert name == f"gather_conv_{which}" + ("_f32" if dtype == torch.float32 else "")
+        if which == "dgrad":
+            assert a is dy and torch.equal(b, pack(w.to(dtype)))
+        else:
+            assert a is feats and b is dy
+    assert kernel.launches == 0
 
 
 def _meta(*shape, dtype=torch.float32, grad=False):

@@ -5,8 +5,8 @@ JAX package's f32 gradient.
 
 The kernels (``csrc/gather_conv_bwd.cu``) multiply on the tensor cores,
 which take bf16 operands, while dY is f32: each dY value is split into
-three bf16 terms (``split_bf16x3``) whose products with the bf16 X or W
-are summed in f32. The model here computes exactly that at phase 3d's
+three bf16 terms (``split_bf16x3`` below, a copy of ``csrc/hopper.cuh``'s)
+whose products with the bf16 X or W are summed in f32. The model here computes exactly that at phase 3d's
 magnitudes (bf16 X and dY of unit scale, about 7000 valid rows an offset,
 dW entries of tens to hundreds) but a small size, and shows why three terms: one
 bf16 term of dY misses ``BWD_ATOL``. The kernels themselves run in
@@ -31,12 +31,24 @@ from roreg_tpu_torch.kernels.gather_conv import (  # noqa: E402
     gather_conv_dgrad_kernel,
     gather_conv_wgrad_kernel,
     pack_dgrad_weights,
-    split_bf16x3,
 )
 
 # chip_smoke.py phase 3d's tolerance: f32 sums in another order, outputs up
 # to about 100
 BWD_ATOL = 1e-2
+
+
+def split_bf16x3(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The bf16 entries' split of dY into three bf16 terms (``csrc/hopper.cuh``
+    ``split_bf16x3``): ``hi = bf16(t)``, ``mid = bf16(t - hi)``, ``lo =
+    bf16(t - hi - mid)``, each difference exact in f32, so ``hi + mid +
+    lo`` is within ``2**-24 * |t|`` of ``t`` and the three products with a
+    bf16 operand, summed in f32, keep f32's precision."""
+    t = t.float()
+    hi = t.bfloat16()
+    r = t - hi.float()
+    mid = r.bfloat16()
+    return hi, mid, (r - mid.float()).bfloat16()
 
 
 def _stage_element(k, n):
