@@ -42,15 +42,15 @@ Phases, each ending in one flushed progress line on stderr:
    dgrad's W split in its one packing, wgrad's X split on chip; a second
    call's gap and the library composites at f32 beside), and
    block_gather (f32 rows), halo_conv (its f32 entry, each halo row split
-   on chip) and up_conv (its f32 entry, a loop over the terms) at phase
-   3b's shapes and at the bench's block capacities; error, times beside
-   the bf16 rows, bounds at f32 operand bytes, and for gather_conv,
-   halo_conv, dgrad and wgrad the device memory a call takes beyond its
-   output and packed weights or scratch (none: no split copy of the
-   features, no second output); each f32 conv call's
+   on chip) and up_conv (its f32 entry, each region row split on chip) at
+   phase 3b's shapes and at the bench's block capacities; error, times
+   beside the bf16 rows, bounds at f32 operand bytes, each f32 conv's
+   launch shape, and for every f32 conv the device memory a call takes
+   beyond its output and packed weights or scratch (none: no split copy of
+   the features or the region, no second output); each f32 conv call's
    device time under ``torch.profiler``, split into its kernel and
-   everything else it launches (the weight packing, up_conv's operand
-   split), summed over one chunk's forward;
+   everything else it launches (the weight packing), summed over one
+   chunk's forward;
 3c. reference: ``register_pair`` at a small configuration on the GPU and on
    the CPU (plain versions), gather engine and block engine, whose
    descriptors must agree; and the RM matcher on both devices fed the same
@@ -867,7 +867,11 @@ def phase_block_kernels(cfg, pair: dict, seed: int, device: str = "cuda",
                  "(layouts made outside the timed span)"),
                 up_work(tbl, mask, cin, cout, elem), 1, conv_tol,
                 f"{layer} [{lvl}] {cin}->{cout} B={tbl.shape[0]} {str(dtype)[6:]}", conv_peak,
-                launch=up_conv_kernel.launch_shape(cin, cout), split_tag="up_conv_kernel" if f32 else None)
+                launch={**up_conv_kernel.launch_shape(cin, cout, f32),
+                        **({"extra_bytes": _extra_bytes(lambda: up_conv_kernel(reg, w, mask),
+                                                        lambda: up_conv_kernel.operands(reg, w), "up_conv")}
+                           if f32 else {})},
+                split_tag="up_conv_kernel" if f32 else None)
         del reg5
 
     if f32:  # the f32 path runs neither skip_concat nor (in another type) cell_dense

@@ -7,8 +7,9 @@
 // (dz+1) of w) for which every axis of u + d is even, where u is a cell of
 // the 4x4x4 fine block (x-major id ux*16 + uy*4 + uz) and R(u, d) =
 // ((ux+dx)/2)*9 + ((uy+dy)/2)*3 + (uz+dz)/2 the coarse cell of the fine
-// block's 3^3 coarse region that the tap reads. reg (B, 27, Cin) bf16 is
-// that region, gathered by block_gather (zero rows for absent cells), mask
+// block's 3^3 coarse region that the tap reads. reg (B, 27, Cin) bf16 (f32
+// at the f32 entry) is that region, gathered by block_gather (zero rows for
+// absent cells), mask
 // (B, 64) uint8 (0 or 1), out (B, 64, Cout) f32. The weights w (27, Cin, Cout) bf16
 // come packed by the caller (kernels/halo_conv.py pack_weights, chunk-major)
 // as Cin/16 x 27 stages: stage (c, tap) holds w[tap, 16c:16c+16, :] in
@@ -57,37 +58,62 @@
 // addresses: A comes from registers, as in halo_conv. Producer warp g
 // streams warpgroup g's weight stages (class by class, 16-channel chunk,
 // tap) through its own mbarrier ring with cp.async.bulk, so every weight
-// byte is read once per thread block. The fine blocks' whole region (27
-// rows x Cin) stays in shared memory for all classes; it comes in by
+// byte is read once per thread block. The fine blocks' whole bf16 region
+// (27 rows x Cin) stays in shared memory for all classes; it comes in by
 // 16-byte cp.async in two channel halves, and the first class starts on the
-// first half while the second lands. At Cin <= 128 the rings are halved so
-// that two thread blocks share an SM (on the card that beat 16 fine blocks a
-// thread block, which shares each weight byte twice as widely). A thread
+// first half while the second lands. At Cin <= 128 the bf16 entry's rings
+// are halved so that two thread blocks share an SM (on the card that beat
+// 16 fine blocks a thread block, which shares each weight byte twice as
+// widely). A thread
 // block whose fine blocks have no occupied cell (capacity padding, which the
 // host builder packs in runs after the live blocks) writes its zeros with
 // 16-byte stores and leaves without starting the producers; a block without
 // occupied cells beside live ones reads no region row (zero-filled) and its
 // output is masked.
 //
-// The f32 entry (up_conv_f32) takes f32 operands as two bf16 terms each,
-// split by the caller: reg = reg_hi + reg_lo and w = w_hi + w_lo, each lo
-// the bf16 rounding of what hi leaves, so about 2^-18 of each operand is
-// lost. It computes reg_hi @ w_hi + reg_hi @ w_lo + reg_lo @ w_hi (the
-// dropped reg_lo @ w_lo is as small) with the same region, rings and
-// tiles, as a loop over the terms in two passes: the first stages reg_hi
-// and multiplies each (chunk, tap) fragment by both weight terms into the
-// class's accumulators; after a barrier of both warpgroups the second
-// stages reg_lo in the same region and multiplies by w_hi, each class's
-// accumulators starting from the sums the first pass stored (each thread
-// reads back exactly the output elements it wrote). The region keeps its
-// size (a stacked 3 x Cin region would not fit at Cin 256), and a call is
-// still one launch. The weights come as the packed w_hi stages followed by
-// the packed w_lo stages.
+// The f32 entry (up_conv_f32) takes the f32 region as it is and f32
+// weights, the latter packed by the caller (kernels/halo_conv.py
+// pack_split_weights) as the two bf16 terms Wh = bf16(w), Wl = bf16(w - Wh)
+// of each (chunk, tap) stage side by side in one ring slot, [Wh ; Wl], with
+// the 16 input rows of both in the order F32_K_ORDER. Each f32 region row
+// that a live fine block needs is read from device memory once, into the
+// region in shared memory. Each lane loads its four channels of its two A
+// rows of a tap as two 16-byte words (K index k of the stage being channel
+// F32_K_ORDER[k], so that those four are adjacent) and splits them in
+// registers into a hi and a lo A fragment (Xh = bf16(x), Xl = bf16(x -
+// Xh)); a tap runs the three products Xh Wh + Xh Wl + Xl Wh into the
+// class's f32 accumulators, the arithmetic of kernels/split.py (about 3 *
+// 2^-18 of a product lost; Xl Wl is dropped), as halo_conv's f32 entry
+// does. A call is one launch and one pass over the weights.
+//
+// Shared memory at f32: the whole f32 region, 8 fine blocks x 27 rows x
+// Cin x 4 bytes, is 221 KB at Cin 256 and cannot sit beside two weight
+// rings of [Wh ; Wl] slots. So the region comes in parts of at most 128
+// channels (110.6 KB), one after another in the same buffer: Cin <= 128
+// is one part; Cin 160-256 two, channels 0-127 then the rest. Every class
+// runs over the first part's chunks and stores its sums; after a barrier of
+// both warpgroups the second part is staged, and each class adds the sums
+// it stored as it stores again (each thread reads back exactly the output
+// elements it wrote). That is still one launch and one read of each region
+// element; for the two Cin-256 layers of the decoder it costs one more
+// write and read of the f32 output (about 0.34 GB a chunk, 0.1-0.2 ms at
+// 3.35 TB/s), where streaming the region by chunk and re-reading it from
+// L2 for each class would read it 4 times from L2, and keeping the 4
+// classes' sums in registers across the parts needs 4 x Cout/2 f32 a
+// thread (256 at Cout 128). The rings take what the widest part leaves:
+// 7 slots a warpgroup at Cout 128, 14 at Cout 64; the small rings of two
+// thread blocks an SM do not fit beside an f32 region. An f32 region row
+// part is 64-byte chunks without padding, and an 8-lane phase of a 16-byte
+// load reads one chunk of two rows that differ by one (the class's cells
+// 2j and 2j + 1 differ by 2 along z, their region rows by 1): chunk c of
+// region row r sits at chunk c ^ (r & 1) of its row, so the two halves of
+// a phase fall in different 64-byte halves of the 128 bytes of banks.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 #include "hopper.cuh"
 
@@ -102,47 +128,81 @@ constexpr int kKC = 16;     // input channels per chunk: one wgmma K step
 constexpr int kWG = 128;    // threads of a warpgroup
 constexpr int kGroups = 2;  // consumer warpgroups, each with its producer warp
 constexpr int kClassesPerGroup = kClasses / kGroups;
+constexpr int kPartCh = 128;  // f32: channels of a region part
+// shared memory a thread block may take, static arrays included
+constexpr int kSmemBudget = 232448;
 // per class: cells[8], ntaps, wrows[8], ridx[8 cells][8 taps]
 constexpr int kMapWords = 8 + 1 + 8 + 64;
 
 __constant__ int c_maps[kClasses * kMapWords];
 __constant__ int c_split[kClasses];  // warpgroup g runs classes c_split[4g .. 4g + 3]
 
-template <int COUT, bool SMALL>
+template <int COUT, bool SMALL, bool F32>
 struct Layout {
   static constexpr int kFB = 8;  // fine blocks per thread block: one wgmma M tile
   static constexpr int kThreads = kGroups * kWG + kGroups * 32;
-  static constexpr int kStageBytes = COUT * kKC * 2;
-  // a weight ring per warpgroup of 32 KB, or 16 KB where two thread blocks
-  // share an SM; at most 16 stages
-  static constexpr int kRingBytes = SMALL ? 16384 : 32768;
-  static constexpr int kStages = kRingBytes / kStageBytes < 16 ? kRingBytes / kStageBytes : 16;
-  // shared memory: rings [2][kStages] | region [kFB][27][cin + 8] | barriers
-  static constexpr int kRegionOff = kGroups * kStages * kStageBytes;
+  static constexpr int kStageBytes = COUT * kKC * 2;  // one bf16 weight stage
+  // a ring slot: one stage, or at f32 the two terms' stages [Wh ; Wl]
+  static constexpr int kSlotBytes = F32 ? 2 * kStageBytes : kStageBytes;
   static constexpr int kStatic = kFB * kCells + kFB * 4;
+  // a weight ring per warpgroup: bf16 32 KB, or 16 KB where two thread
+  // blocks share an SM; f32 what the widest region part leaves; at most 16
+  // slots
+  static constexpr int kRingBytes =
+      F32 ? (kSmemBudget - kStatic - kFB * kTaps * kPartCh * 4 - 2 * kGroups * 16 * 8) / kGroups
+          : (SMALL ? 16384 : 32768);
+  static constexpr int kStages = kRingBytes / kSlotBytes < 16 ? kRingBytes / kSlotBytes : 16;
+  // shared memory: rings [2][kStages] | region [kFB][27][pitch] | barriers
+  static constexpr int kRegionOff = kGroups * kStages * kSlotBytes;
+  // a region row in bytes: bf16 cin + 8 channels, f32 one part's channels
+  static constexpr __host__ __device__ int pitch(int cin) {
+    return F32 ? (cin < kPartCh ? cin : kPartCh) * 4 : (cin + 8) * 2;
+  }
+  // the region's parts, staged one after another
+  static constexpr __host__ __device__ int parts(int cin) {
+    return F32 ? (cin + kPartCh - 1) / kPartCh : 1;
+  }
   static constexpr __host__ __device__ int bar_off(int cin) {
-    return (kRegionOff + kFB * kTaps * (cin + 8) * 2 + 7) / 8 * 8;
+    return (kRegionOff + kFB * kTaps * pitch(cin) + 7) / 8 * 8;
   }
   static constexpr __host__ __device__ int bytes(int cin) {
     return bar_off(cin) + 2 * kGroups * kStages * 8;
   }
 };
-static_assert(Layout<128, false>::bytes(256) + Layout<128, false>::kStatic <= 232448,
+static_assert(Layout<128, false, false>::bytes(256) + Layout<128, false, false>::kStatic <= kSmemBudget,
               "shared memory of one thread block at the widest shape");
-static_assert(2 * (Layout<128, true>::bytes(128) + Layout<128, true>::kStatic + 1024) <= 233472,
+static_assert(2 * (Layout<128, true, false>::bytes(128) + Layout<128, true, false>::kStatic + 1024) <=
+                  233472,
               "two thread blocks an SM with the small rings");
+template <int COUT>
+constexpr bool f32_fits() {
+  using L = Layout<COUT, false, true>;
+  return L::bytes(256) + L::kStatic <= kSmemBudget && L::kStages >= 4;
+}
+static_assert(f32_fits<32>() && f32_fits<64>() && f32_fits<128>(),
+              "f32: a region part and at least four [Wh ; Wl] slots a ring");
 
-// F32: two passes over the terms of split f32 operands (the header's last
-// paragraph); else one pass over bf16 operands
+// 16 bytes of shared memory as four f32
+__device__ __forceinline__ float4 ld_shared_f32x4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr));
+  return v;
+}
+
+// F32: f32 region, [Wh ; Wl] slots, three products a tap, the region in
+// parts (the header's last two paragraphs); else bf16 operands
 template <int COUT, bool SMALL, bool F32>
-__global__ void __launch_bounds__(Layout<COUT, SMALL>::kThreads, SMALL ? 2 : 1)
-up_conv_kernel(const __nv_bfloat16* __restrict__ reg, const __nv_bfloat16* __restrict__ reg_lo,
+__global__ void __launch_bounds__(Layout<COUT, SMALL, F32>::kThreads, SMALL ? 2 : 1)
+up_conv_kernel(const std::conditional_t<F32, float, __nv_bfloat16>* __restrict__ reg,
                const __nv_bfloat16* __restrict__ wp, const uint8_t* __restrict__ mask,
                float* __restrict__ out, int64_t nb, int cin) {
-  using L = Layout<COUT, SMALL>;
-  constexpr int kPasses = F32 ? 2 : 1;
+  using L = Layout<COUT, SMALL, F32>;
+  using In = std::conditional_t<F32, float, __nv_bfloat16>;
   constexpr int kFB = L::kFB;
   constexpr int kStages = L::kStages;
+  constexpr int kPieces = 16 / sizeof(In);  // elements of a 16-byte piece
   extern __shared__ __align__(1024) unsigned char smem[];
   __shared__ __align__(16) uint8_t mask_s[kFB * kCells];
   __shared__ int live_s[kFB];
@@ -150,8 +210,10 @@ up_conv_kernel(const __nv_bfloat16* __restrict__ reg, const __nv_bfloat16* __res
   const int tid = threadIdx.x;
   const int g = tid / kWG;  // consumer warpgroup, or kGroups for the producer warps
   const int64_t b0 = static_cast<int64_t>(blockIdx.x) * kFB;
-  const int pitch = cin + 8;  // region row pitch in bf16
+  const int pitch = L::pitch(cin);  // region row in bytes
   const int chunks = cin / kKC;
+  const int parts = L::parts(cin);
+  const int part_chunks = F32 ? kPartCh / kKC : chunks;  // chunks of a full part
   const uint32_t full0 = smem_addr(smem + L::bar_off(cin));  // [ring][slot]
   const uint32_t empty0 = full0 + 8 * kGroups * kStages;
 
@@ -176,31 +238,27 @@ up_conv_kernel(const __nv_bfloat16* __restrict__ reg, const __nv_bfloat16* __res
   }
   const bool any_live = __syncthreads_or(mine);
 
-  if (g == kGroups) {  // producers: one thread each streams its warpgroup's weight stages
+  if (g == kGroups) {  // producers: one thread each streams its warpgroup's weight slots
     if (!any_live || tid % 32 != 0) return;
     const int ring = (tid - kGroups * kWG) / 32;
     const uint32_t full = full0 + 8 * ring * kStages;
     const uint32_t empty = empty0 + 8 * ring * kStages;
-    const uint32_t ring_s = smem_addr(smem + ring * kStages * L::kStageBytes);
-    // the stages in the consumers' order: pass, class, chunk, tap, weight term
-    const int64_t term_elems = static_cast<int64_t>(chunks) * kTaps * (L::kStageBytes / 2);
+    const uint32_t ring_s = smem_addr(smem + ring * kStages * L::kSlotBytes);
+    // the slots in the consumers' order: region part, class, chunk, tap
     int s = 0;
-    for (int p = 0; p < kPasses; ++p) {
-      const int terms = F32 && p == 0 ? 2 : 1;
+    for (int p = 0; p < parts; ++p) {
+      const int c1 = min(chunks, (p + 1) * part_chunks);
       for (int ci = 0; ci < kClassesPerGroup; ++ci) {
         const int* map = c_maps + c_split[ring * kClassesPerGroup + ci] * kMapWords;
         const int nt = map[8];
-        for (int c = 0; c < chunks; ++c) {
-          for (int t = 0; t < nt; ++t) {
-            for (int w = 0; w < terms; ++w, ++s) {
-              const int slot = s % kStages;
-              if (s >= kStages) mbar_wait(empty + 8 * slot, (s / kStages - 1) & 1);
-              mbar_arrive_expect_tx(full + 8 * slot, L::kStageBytes);
-              bulk_copy(ring_s + slot * L::kStageBytes,
-                        wp + w * term_elems +
-                            (static_cast<int64_t>(c) * kTaps + map[9 + t]) * (L::kStageBytes / 2),
-                        L::kStageBytes, full + 8 * slot);
-            }
+        for (int c = p * part_chunks; c < c1; ++c) {
+          for (int t = 0; t < nt; ++t, ++s) {
+            const int slot = s % kStages;
+            if (s >= kStages) mbar_wait(empty + 8 * slot, (s / kStages - 1) & 1);
+            mbar_arrive_expect_tx(full + 8 * slot, L::kSlotBytes);
+            bulk_copy(ring_s + slot * L::kSlotBytes,
+                      wp + (static_cast<int64_t>(c) * kTaps + map[9 + t]) * (L::kSlotBytes / 2),
+                      L::kSlotBytes, full + 8 * slot);
           }
         }
       }
@@ -218,34 +276,43 @@ up_conv_kernel(const __nv_bfloat16* __restrict__ reg, const __nv_bfloat16* __res
     return;
   }
 
-  // the fine blocks' regions, in two channel halves (two cp.async groups);
-  // a block without occupied cells reads nothing and stays zero
-  __nv_bfloat16* region = reinterpret_cast<__nv_bfloat16*>(smem + L::kRegionOff);
-  const int parts = cin / 16;  // 16-byte pieces of a row's channel half
-  auto stage_region = [&](const __nv_bfloat16* from) {
+  // part p of the fine blocks' regions, in two channel halves (two cp.async
+  // groups); a block without occupied cells reads nothing and stays zero.
+  // f32: chunk c of row r lands at chunk c ^ (r & 1) of its row (piece
+  // index ^ 4), the part's chunk count being even
+  unsigned char* region = smem + L::kRegionOff;
+  auto stage_region = [&](int p) {
+    const int c0 = p * part_chunks;
+    const int half = min(chunks - c0, part_chunks) / 2 * (kKC / kPieces);  // pieces of half a row
     for (int h = 0; h < 2; ++h) {
-      for (int e = tid; e < kFB * kTaps * parts; e += kGroups * kWG) {
-        const int row = e / parts;  // fine block * 27 + region cell
-        const int part = h * parts + (e - row * parts);
+      for (int e = tid; e < kFB * kTaps * half; e += kGroups * kWG) {
+        const int row = e / half;  // fine block * 27 + region cell
+        const int piece = h * half + (e - row * half);
         const bool live = live_s[row / kTaps] != 0;
-        const __nv_bfloat16* src = live ? from + (b0 * kTaps + row) * cin + part * 8 : from;
-        cp_async_16(smem_addr(region + row * pitch + part * 8), src, live ? 16 : 0);
+        const In* src = live ? reg + (b0 * kTaps + row) * cin + c0 * kKC + piece * kPieces : reg;
+        const int at = F32 ? piece ^ ((row & 1) << 2) : piece;
+        cp_async_16(smem_addr(region + row * pitch + at * 16), src, live ? 16 : 0);
       }
       cp_async_commit();
     }
   };
-  stage_region(reg);
+  stage_region(0);
 
   const int warp = (tid % kWG) / 32;
   const int lane = tid % 32;
-  // this lane's A row: class cell lane % 8 of fine block 2 warp + (lane %
-  // 16) / 8, channels 8 (lane / 16) ..
+  // bf16: this lane's ldmatrix row, class cell lane % 8 of fine block
+  // 2 warp + (lane % 16) / 8, channels 8 (lane / 16) .. of a chunk. f32: its
+  // two A rows, class cell lane / 4 of fine blocks 2 warp and 2 warp + 1,
+  // channels 4 (lane % 4) .. 4 (lane % 4) + 3 of a chunk (K indices 2q,
+  // 2q + 1, 8 + 2q, 9 + 2q in F32_K_ORDER)
+  const int cell_row = F32 ? lane >> 2 : lane & 7;
   const uint32_t region_lane =
-      smem_addr(region + (2 * warp + ((lane & 15) >> 3)) * kTaps * pitch + (lane >> 4) * 8);
+      F32 ? smem_addr(region + 2 * warp * kTaps * pitch + (lane & 3) * 16)
+          : smem_addr(region + (2 * warp + ((lane & 15) >> 3)) * kTaps * pitch + (lane >> 4) * 16);
   const uint32_t full = full0 + 8 * g * kStages;
   const uint32_t empty = empty0 + 8 * g * kStages;
-  const uint32_t ring_s = smem_addr(smem + g * kStages * L::kStageBytes);
-  int s = 0;  // this warpgroup's weight stage
+  const uint32_t ring_s = smem_addr(smem + g * kStages * L::kSlotBytes);
+  int s = 0;  // this warpgroup's weight slot
 
   // this thread's accumulator element 4j + 2h + e: class cell lane / 4 of
   // fine block 2 warp + h, column 8j + 2 (lane % 4) + e
@@ -253,73 +320,80 @@ up_conv_kernel(const __nv_bfloat16* __restrict__ reg, const __nv_bfloat16* __res
     return out + ((b0 + 2 * warp + h) * kCells + cell) * COUT + (lane & 3) * 2;
   };
 
-  // one class of NT taps: chunk by chunk, tap by tap, one commit group per
-  // (chunk, tap, weight term) with one more in flight; the A registers of a
-  // tap serve its weight terms (one, or at f32 `terms`, a loop kept rolled
-  // so that the f32 entry compiles to the size of the bf16 one) and
-  // alternate by the tap's parity, which the unrolled (chunk pair, tap)
-  // loop makes static. With carry the accumulators start from the sums this
-  // thread stored in the first pass.
-  auto run_class = [&](auto nt_c, const int* map, bool first, bool carry, int terms) {
+  // one class of NT taps over the NCH chunks of a region part: chunk by
+  // chunk, tap by tap, one commit group per (chunk, tap) with one more in
+  // flight; the A registers alternate by the tap's parity, which the
+  // unrolled (chunk pair, tap) loop makes static. With carry the sums
+  // this thread stored for the part before are added as it stores (loaded
+  // into the accumulators before the products, they made ptxas serialise
+  // the wgmma pipeline at Cout 32 and 64).
+  auto run_class = [&](auto nt_c, const int* map, bool first, bool carry, int nch) {
     constexpr int NT = decltype(nt_c)::value;
     float acc[COUT / 2];
 #pragma unroll
     for (int j = 0; j < COUT / 2; ++j) acc[j] = 0.f;
-    if (carry) {
-      const int cell = map[lane >> 2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        if (b0 + 2 * warp + h >= nb) continue;
-        const float* o = out_at(cell, h);
-#pragma unroll
-        for (int j = 0; j < COUT / 8; ++j) {
-          const float2 v = *reinterpret_cast<const float2*>(o + j * 8);
-          acc[4 * j + 2 * h] = v.x;
-          acc[4 * j + 2 * h + 1] = v.y;
-        }
-      }
-    }
     uint32_t a_row[NT];
+    int odd = 0;  // f32: bit t set where tap t's region row of fine block 2 warp is odd
 #pragma unroll
-    for (int t = 0; t < NT; ++t) a_row[t] = region_lane + map[17 + (lane & 7) * 8 + t] * pitch * 2;
-    uint32_t a[2][4];
+    for (int t = 0; t < NT; ++t) {
+      const int r = map[17 + cell_row * 8 + t];
+      a_row[t] = region_lane + r * pitch;
+      odd |= (r & 1) << t;
+    }
+    uint32_t a[2][4];                                // A fragments (f32: the hi terms)
+    [[maybe_unused]] uint32_t a_lo[2][F32 ? 4 : 1];  // f32: the lo terms
     const int s0 = s;
-    // one weight stage's products with the A registers `a`
-    auto mma = [&](const uint32_t (&a_t)[4]) {
+    // one slot's products with the A registers of buffer `buf`
+    auto mma = [&](int buf) {
       const int slot = s % kStages;
       mbar_wait(full + 8 * slot, (s / kStages) & 1);
       __syncwarp();  // converged for the .aligned wgmma instructions
       wgmma_fence();
-      wgmma_tile<COUT>(acc, a_t, ring_s + slot * L::kStageBytes);
+      const uint32_t stage = ring_s + slot * L::kSlotBytes;
+      wgmma_tile<COUT>(acc, a[buf], stage);
+      if constexpr (F32) {
+        wgmma_tile<COUT>(acc, a[buf], stage + L::kStageBytes);  // Xh Wl
+        wgmma_tile<COUT>(acc, a_lo[buf], stage);                 // Xl Wh
+      }
       wgmma_commit();
       if (s > s0) {
-        wgmma_wait<1>();  // the previous stage's products have read it and its A
+        wgmma_wait<1>();  // the previous slot's products have read it and its A
         if (lane == 0) mbar_arrive(empty + 8 * ((s - 1) % kStages));
         __syncwarp();
       }
       ++s;
     };
-    if (first) {  // the first channel half has landed, for both warpgroups
+    if (first) {  // the part's first channel half has landed, for both warpgroups
       cp_async_wait<1>();
       named_barrier(1, kGroups * kWG);
     }
-    for (int c = 0; c < chunks; c += 2) {
+    for (int c = 0; c < nch; c += 2) {
 #pragma unroll
       for (int cc = 0; cc < 2; ++cc) {
-        if (first && c + cc == chunks / 2) {
+        if (first && c + cc == nch / 2) {
           cp_async_wait<0>();
           named_barrier(1, kGroups * kWG);
         }
 #pragma unroll
         for (int t = 0; t < NT; ++t) {
           const int buf = (cc * NT + t) & 1;
-          ldmatrix_x4(a_row[t] + (c + cc) * kKC * 2, a[buf]);
           if constexpr (F32) {
-#pragma unroll 1
-            for (int w = 0; w < terms; ++w) mma(a[buf]);
+            // chunk c + cc (c even) of a row sits at chunk slot c + (cc ^
+            // the row's parity); fine block 2 warp + 1's row is 27 rows on,
+            // of the other parity
+            const int sw = ((odd >> t) ^ cc) & 1;
+            const float4 x0 = ld_shared_f32x4(a_row[t] + (c + sw) * kKC * 4);
+            const float4 x1 = ld_shared_f32x4(a_row[t] + kTaps * pitch + (c + (sw ^ 1)) * kKC * 4);
+            uint32_t(&hi)[4] = a[buf];
+            uint32_t(&lo)[4] = a_lo[buf];
+            split_bf16x2(x0.x, x0.y, hi[0], lo[0]);
+            split_bf16x2(x1.x, x1.y, hi[1], lo[1]);
+            split_bf16x2(x0.z, x0.w, hi[2], lo[2]);
+            split_bf16x2(x1.z, x1.w, hi[3], lo[3]);
           } else {
-            mma(a[buf]);
+            ldmatrix_x4(a_row[t] + (c + cc) * kKC * 2, a[buf]);
           }
+          mma(buf);
         }
       }
     }
@@ -335,58 +409,66 @@ up_conv_kernel(const __nv_bfloat16* __restrict__ reg, const __nv_bfloat16* __res
       float* o = out_at(cell, h);
 #pragma unroll
       for (int j = 0; j < COUT / 8; ++j) {
-        *reinterpret_cast<float2*>(o + j * 8) =
-            keep ? make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]) : make_float2(0.f, 0.f);
+        float2 v = make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        if (F32 && carry) {
+          const float2 before = *reinterpret_cast<const float2*>(o + j * 8);
+          v.x += before.x;
+          v.y += before.y;
+        }
+        *reinterpret_cast<float2*>(o + j * 8) = keep ? v : make_float2(0.f, 0.f);
       }
     }
   };
 
-  for (int p = 0; p < kPasses; ++p) {
-    const bool carry = p == 1;
-    if (carry) {  // reg_hi @ (w_hi, w_lo) is stored; + reg_lo @ w_hi
-      named_barrier(1, kGroups * kWG);  // both warpgroups are done with reg_hi
-      stage_region(reg_lo);
+  for (int p = 0; p < parts; ++p) {
+    if (p > 0) {  // the sums over part p - 1 are stored; part p takes its place
+      named_barrier(1, kGroups * kWG);  // both warpgroups are done with part p - 1
+      stage_region(p);
     }
-    const int terms = F32 && p == 0 ? 2 : 1;
+    const int nch = min(chunks - p * part_chunks, part_chunks);
     for (int ci = 0; ci < kClassesPerGroup; ++ci) {
       const int* map = c_maps + c_split[g * kClassesPerGroup + ci] * kMapWords;
       const bool first = ci == 0;
+      const bool carry = p > 0;
       switch (map[8]) {
-        case 1: run_class(Int<1>{}, map, first, carry, terms); break;
-        case 2: run_class(Int<2>{}, map, first, carry, terms); break;
-        case 4: run_class(Int<4>{}, map, first, carry, terms); break;
-        default: run_class(Int<8>{}, map, first, carry, terms); break;
+        case 1: run_class(Int<1>{}, map, first, carry, nch); break;
+        case 2: run_class(Int<2>{}, map, first, carry, nch); break;
+        case 4: run_class(Int<4>{}, map, first, carry, nch); break;
+        default: run_class(Int<8>{}, map, first, carry, nch); break;
       }
     }
   }
 }
 
-// the small rings, two thread blocks an SM, where the region is small
+// the small rings, two thread blocks an SM, where the bf16 region is small
 bool small_ring(int cin) { return cin <= 128; }
 
 template <int COUT, bool SMALL, bool F32>
-int launch(const void* reg, const void* reg_lo, const void* wp, const void* mask, void* out,
-           int64_t nb, int cin, cudaStream_t stream) {
-  using L = Layout<COUT, SMALL>;
+int launch(const void* reg, const void* wp, const void* mask, void* out, int64_t nb, int cin,
+           cudaStream_t stream) {
+  using L = Layout<COUT, SMALL, F32>;
+  using In = std::conditional_t<F32, float, __nv_bfloat16>;
   auto kernel = up_conv_kernel<COUT, SMALL, F32>;
   const int bytes = L::bytes(cin);
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const unsigned grid = static_cast<unsigned>((nb + L::kFB - 1) / L::kFB);
   kernel<<<grid, L::kThreads, bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(reg), static_cast<const __nv_bfloat16*>(reg_lo),
-      static_cast<const __nv_bfloat16*>(wp), static_cast<const uint8_t*>(mask),
-      static_cast<float*>(out), nb, cin);
+      static_cast<const In*>(reg), static_cast<const __nv_bfloat16*>(wp),
+      static_cast<const uint8_t*>(mask), static_cast<float*>(out), nb, cin);
   return static_cast<int>(cudaGetLastError());
 }
 
 // calls f(Int<COUT>, Int<SMALL>) for these widths; false for widths the
-// kernel does not take (Cin a multiple of 32 up to 256, Cout 32, 64, 128)
-template <typename F>
+// kernel does not take (Cin a multiple of 32 up to 256, Cout 32, 64, 128).
+// The f32 entry never takes the small rings.
+template <bool F32, typename F>
 bool dispatch(int cin, int cout, F&& f) {
   if (cin < 32 || cin > 256 || cin % 32 != 0) return false;
   auto by_ring = [&](auto co) {
-    if (small_ring(cin)) {
+    if constexpr (F32) {
+      f(co, Int<0>{});
+    } else if (small_ring(cin)) {
       f(co, Int<1>{});
     } else {
       f(co, Int<0>{});
@@ -399,6 +481,20 @@ bool dispatch(int cin, int cout, F&& f) {
     case 128: return by_ring(Int<128>{});
     default: return false;
   }
+}
+
+template <bool F32>
+int run(const void* reg, const void* wp, const void* mask, void* out, int64_t nb, int cin, int cout,
+        void* stream) {
+  if (nb < 0 || nb > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  int rc = 0;
+  const bool ok = dispatch<F32>(cin, cout, [&](auto co, auto small) {
+    if (nb > 0) {
+      rc = launch<decltype(co)::value, decltype(small)::value != 0, F32>(
+          reg, wp, mask, out, nb, cin, static_cast<cudaStream_t>(stream));
+    }
+  });
+  return ok ? rc : static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -441,15 +537,21 @@ int up_conv_set_maps(const int* maps, int count, const int* split, int nsplit) {
   return static_cast<int>(cudaMemcpyToSymbol(c_split, split, sizeof(int) * kClasses));
 }
 
-// The launch shape for a call: fine blocks per thread block and weight
-// stages in each warpgroup's ring. Returns cudaErrorInvalidValue for widths
-// the kernel does not take.
-int up_conv_launch_shape(int cin, int cout, int* fine_blocks, int* stages) {
-  const bool ok = dispatch(cin, cout, [&](auto co, auto small) {
-    using L = Layout<decltype(co)::value, decltype(small)::value != 0>;
+// The launch shape of the bf16 (f32 = 0) or the f32 entry for these widths:
+// fine blocks per thread block, weight slots in each warpgroup's ring, the
+// region's parts and dynamic shared memory bytes. Returns
+// cudaErrorInvalidValue for widths the kernel does not take.
+int up_conv_launch_shape(int cin, int cout, int f32, int* fine_blocks, int* stages, int* parts,
+                         int* smem_bytes) {
+  auto fill = [&](auto co, auto small, auto is_f32) {
+    using L = Layout<decltype(co)::value, decltype(small)::value != 0, decltype(is_f32)::value != 0>;
     *fine_blocks = L::kFB;
     *stages = L::kStages;
-  });
+    *parts = L::parts(cin);
+    *smem_bytes = L::bytes(cin);
+  };
+  const bool ok = f32 ? dispatch<true>(cin, cout, [&](auto co, auto small) { fill(co, small, Int<1>{}); })
+                      : dispatch<false>(cin, cout, [&](auto co, auto small) { fill(co, small, Int<0>{}); });
   return ok ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -460,33 +562,15 @@ int up_conv_launch_shape(int cin, int cout, int* fine_blocks, int* stages) {
 // out are 16-byte aligned.
 int up_conv_bf16(const void* reg, const void* wp, const void* mask, void* out, int64_t nb,
                  int cin, int cout, void* stream) {
-  if (nb < 0 || nb > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int rc = 0;
-  const bool ok = dispatch(cin, cout, [&](auto co, auto small) {
-    if (nb > 0) {
-      rc = launch<decltype(co)::value, decltype(small)::value != 0, false>(reg, nullptr, wp, mask,
-                                                                            out, nb, cin, s);
-    }
-  });
-  return ok ? rc : static_cast<int>(cudaErrorInvalidValue);
+  return run<false>(reg, wp, mask, out, nb, cin, cout, stream);
 }
 
-// The f32 entry (the header's last paragraph): reg_hi and reg_lo (B, 27,
-// Cin) bf16 are the two terms of the f32 region, wp the packed w_hi stages
-// followed by the packed w_lo stages. Launches and returns as up_conv_bf16.
-int up_conv_f32(const void* reg_hi, const void* reg_lo, const void* wp, const void* mask, void* out,
-                int64_t nb, int cin, int cout, void* stream) {
-  if (nb < 0 || nb > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  int rc = 0;
-  const bool ok = dispatch(cin, cout, [&](auto co, auto small) {
-    if (nb > 0) {
-      rc = launch<decltype(co)::value, decltype(small)::value != 0, true>(reg_hi, reg_lo, wp, mask,
-                                                                           out, nb, cin, s);
-    }
-  });
-  return ok ? rc : static_cast<int>(cudaErrorInvalidValue);
+// The f32 entry (the header's last two paragraphs): reg (B, 27, Cin) f32,
+// wp the [Wh ; Wl] slots of the split f32 weights; otherwise as
+// up_conv_bf16.
+int up_conv_f32(const void* reg, const void* wp, const void* mask, void* out, int64_t nb, int cin,
+                int cout, void* stream) {
+  return run<true>(reg, wp, mask, out, nb, cin, cout, stream);
 }
 
 }  // extern "C"

@@ -149,8 +149,8 @@ F32_K_ORDER = (0, 1, 4, 5, 8, 9, 12, 13, 2, 3, 6, 7, 10, 11, 14, 15)
 
 
 def pack_split_weights(w: torch.Tensor) -> torch.Tensor:
-    """(K, Cin, Cout) f32 -> the f32 entry's weight slots: the two bf16
-    terms ``Wh, Wl`` of ``split_bf16x2(w)``, chunk-major as
+    """(K, Cin, Cout) f32 -> the weight slots of the f32 entries of
+    ``halo_conv`` and ``up_conv``: the two bf16 terms ``Wh, Wl`` of ``split_bf16x2(w)``, chunk-major as
     :func:`pack_weights` lays them out, (Cin/16, K, 2, Cout/8, 2, 8, 8):
     [Wh ; Wl] of one (chunk, tap) side by side, K index k of a stage
     holding channel ``F32_K_ORDER[k]`` of the chunk, in one copy."""

@@ -13,15 +13,14 @@ and wgrad ``dYh Xh + dYh Xl + dYm Xh``, ``dYh, dYm`` being dY's two terms
 (the first two of the three that their bf16 entries carry); the dropped
 products are each under 2^-17 of a product.
 
-Two designs carry the rule:
-
-- on chip, one launch a call (``gather_conv``, ``halo_conv``, and the
-  gradient's dgrad and wgrad): the kernel reads each f32 row it gathers
-  or stages (features, dY) once and splits it there; the weights' terms come
-  split and packed once as ``[Wh ; Wl]`` slots (each module's
-  ``pack_split_weights``, and ``pack_dgrad_split_weights`` for dgrad);
-- on the host (``up_conv``): its wrapper splits the gathered region into
-  two bf16 copies and its kernel loops over the terms.
+One design carries the rule, for all five f32 entries (``gather_conv``,
+``halo_conv``, ``up_conv``, and the gradient's dgrad and wgrad): on chip,
+one launch a call. The kernel reads each f32 row it gathers or stages
+(features, region rows, dY) once and splits it there; the weights' terms
+come split and packed once as ``[Wh ; Wl]`` slots (each module's
+``pack_split_weights``, ``up_conv`` taking ``halo_conv``'s, and
+``pack_dgrad_split_weights`` for dgrad). So :func:`split_bf16x2` serves
+only that weight packing (and the tests' models of the products).
 """
 
 from __future__ import annotations

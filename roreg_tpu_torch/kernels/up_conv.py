@@ -11,9 +11,11 @@ as a one-hot GEMM.
 
 :func:`up_conv` runs the plain PyTorch version for tensors on the CPU and
 the CUDA kernel of ``csrc/up_conv.cu`` for tensors on the GPU; on a GPU it
-launches the kernel or raises. Operands are bf16, or f32, which the
-kernel's f32 entry takes as two bf16 terms each (``kernels/split.py``),
-its three products run as a loop over the terms inside one launch.
+launches the kernel or raises. Operands are bf16 (the kernel's bf16
+entry), or f32 (its f32 entry, one launch: each f32 region row is read
+once and split into two bf16 terms on chip; the weights come split and
+packed as ``kernels/halo_conv.py`` ``pack_split_weights`` lays them out,
+``kernels/split.py``).
 """
 
 from __future__ import annotations
@@ -25,8 +27,7 @@ import numpy as np
 import torch
 
 from roreg_tpu_torch.build import CudaKernel
-from roreg_tpu_torch.kernels.halo_conv import BLOCK, CELLS, pack_weights
-from roreg_tpu_torch.kernels.split import split_bf16x2
+from roreg_tpu_torch.kernels.halo_conv import BLOCK, CELLS, pack_split_weights, pack_weights
 
 __all__ = [
     "UP_CLASSES",
@@ -167,20 +168,34 @@ class UpConvKernel(CudaKernel):
         vp, i64, ci = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         lib.up_conv_set_maps.restype = ci
         lib.up_conv_set_maps.argtypes = [vp, ci, vp, ci]
-        lib.up_conv_bf16.restype = ci
-        lib.up_conv_bf16.argtypes = [vp, vp, vp, vp, i64, ci, ci, vp]
-        lib.up_conv_f32.restype = ci
-        lib.up_conv_f32.argtypes = [vp, vp, vp, vp, vp, i64, ci, ci, vp]
+        for entry in (lib.up_conv_bf16, lib.up_conv_f32):
+            entry.restype = ci
+            entry.argtypes = [vp, vp, vp, vp, i64, ci, ci, vp]
+        pi = ctypes.POINTER(ci)
         lib.up_conv_launch_shape.restype = ci
-        lib.up_conv_launch_shape.argtypes = [ci, ci, ctypes.POINTER(ci), ctypes.POINTER(ci)]
+        lib.up_conv_launch_shape.argtypes = [ci, ci, ci, pi, pi, pi, pi]
 
-    def launch_shape(self, cin: int, cout: int) -> dict:
-        """The kernel's launch shape for these widths: fine blocks per
-        thread block and the weight stages of each warpgroup's ring."""
+    def launch_shape(self, cin: int, cout: int, f32: bool = False) -> dict:
+        """The launch shape of the bf16 or the f32 entry for these widths:
+        fine blocks per thread block, the weight slots of each warpgroup's
+        ring, the region's parts (staged one after another) and the dynamic
+        shared memory bytes."""
         _check_widths(cin, cout)
-        blocks, stages = ctypes.c_int(), ctypes.c_int()
-        self.check_rc("up_conv", self._load().up_conv_launch_shape(cin, cout, blocks, stages))
-        return {"blocks_per_cta": blocks.value, "stages": stages.value}
+        blocks, stages, parts, smem = (ctypes.c_int() for _ in range(4))
+        rc = self._load().up_conv_launch_shape(cin, cout, int(f32), blocks, stages, parts, smem)
+        self.check_rc("up_conv", rc)
+        return {"blocks_per_cta": blocks.value, "stages": stages.value, "region_parts": parts.value,
+                "smem_bytes": smem.value}
+
+    @staticmethod
+    def operands(reg: torch.Tensor, w: torch.Tensor) -> tuple[str, torch.Tensor]:
+        """The C entry for these operand types and its packed weights: bf16
+        operands -> ``up_conv_bf16`` and ``pack_weights``; f32 ->
+        ``up_conv_f32`` and ``pack_split_weights``'s slots (K rows in
+        ``F32_K_ORDER``). The region goes to the kernel as it is."""
+        if reg.dtype == torch.float32:
+            return "up_conv_f32", pack_split_weights(w)
+        return "up_conv_bf16", pack_weights(w)
 
     def __call__(self, reg: torch.Tensor, w: torch.Tensor, cell_mask: torch.Tensor) -> torch.Tensor:
         """reg (B, 27, Cin) and w (27, Cin, Cout), both bf16 or both f32 (the
@@ -208,7 +223,7 @@ class UpConvKernel(CudaKernel):
         for name, t in (("reg", reg), ("w", w), ("cell_mask", cell_mask)):
             if not t.is_contiguous():
                 raise ValueError(f"up_conv kernel: {name} must be contiguous")
-        if (not f32 and reg.data_ptr() % 16) or cell_mask.data_ptr() % 16:
+        if reg.data_ptr() % 16 or cell_mask.data_ptr() % 16:
             raise ValueError("up_conv kernel: reg and cell_mask must be 16-byte aligned")
         lib = self._load()
         out = torch.empty((b, CELLS, cout), dtype=torch.float32, device=dev)
@@ -220,19 +235,10 @@ class UpConvKernel(CudaKernel):
                     table.ctypes.data, table.size, split.ctypes.data, split.size))
                 self._maps_on.add(dev.index)
             stream = torch.cuda.current_stream(dev).cuda_stream
-            if f32:
-                reg_hi, reg_lo = split_bf16x2(reg)
-                wp = torch.cat([pack_weights(t) for t in split_bf16x2(w)])  # w_hi's stages, then w_lo's
-                rc = lib.up_conv_f32(
-                    reg_hi.data_ptr(), reg_lo.data_ptr(), wp.data_ptr(), cell_mask.data_ptr(),
-                    out.data_ptr(), b, cin, cout, stream,
-                )
-            else:
-                wp = pack_weights(w)
-                rc = lib.up_conv_bf16(
-                    reg.data_ptr(), wp.data_ptr(), cell_mask.data_ptr(), out.data_ptr(), b, cin, cout,
-                    stream,
-                )
+            entry, wp = self.operands(reg, w)
+            rc = getattr(lib, entry)(
+                reg.data_ptr(), wp.data_ptr(), cell_mask.data_ptr(), out.data_ptr(), b, cin, cout, stream,
+            )
         self.check_rc("up_conv", rc)
         self.launches += 1
         return out

@@ -153,7 +153,8 @@ def test_split_weights_sit_where_the_f32_entry_reads_them(cin, cout):
     from 32 * Cout * s elements of the packed weights, its Wl stage 16 *
     Cout elements after its Wh stage; element (k, n) of term t's stage is
     term t of w[tap, 16c + F32_K_ORDER[k], n] at the stage's K-major
-    offset (csrc/halo_conv.cu)."""
+    offset (csrc/halo_conv.cu; csrc/up_conv.cu's f32 entry reads the same
+    slots, tap being the class's weight row)."""
     w = torch.from_numpy(np.random.default_rng(cin).normal(size=(27, cin, cout)).astype(np.float32))
     terms = split_bf16x2(w)
     flat = pack_split_weights(w).reshape(-1)
@@ -341,13 +342,16 @@ def test_halo_conv_kernel_f32_on_gpu(exact_f32, span, stride, cin, cout):
     (203, 256, 128), (405, 256, 64), (1213, 128, 64), (99, 32, 32),
     (611, 192, 64),  # ResUNetBN2B's conv3_tr, ResUNetBN2D's conv2_tr
     (2053, 256, 128),  # ResUNetBN2E's conv2_tr, level 0
+    (517, 128, 128), (333, 192, 128),
+    (250, 160, 64),  # a second region part of one chunk pair
 ])
 def test_up_conv_kernel_f32_on_gpu(exact_f32, blocks, cin, cout):
-    """The kernel's f32 entry (a loop over the terms: the hi region against
-    both weight terms, then the lo region restaged against w_hi), at the
-    decoder's widths up to Cin 256, with absent region cells, padding
-    blocks, runs of dead blocks and a ragged last thread block: one launch,
-    within ``F32_RTOL`` of the f32 plain version; masked cells 0."""
+    """The kernel's f32 entry (each region row split on chip, three
+    products a tap, the region in parts of 128 channels above Cin 128),
+    at the decoder's widths up to Cin 256, with absent region cells,
+    padding blocks, a run of dead blocks that leaves whole thread blocks
+    empty and a ragged last thread block: one launch, within ``F32_RTOL``
+    of the f32 plain version; masked cells 0; the launch shape."""
     from roreg_tpu_torch.kernels.up_conv import up_conv, up_conv_kernel, up_conv_plain
 
     dev = exact_f32
@@ -356,7 +360,7 @@ def test_up_conv_kernel_f32_on_gpu(exact_f32, blocks, cin, cout):
     tbl = rng.integers(0, nsrc, size=(blocks, 27))
     tbl[rng.random((blocks, 27)) < 0.3] = -1
     mask = rng.random((blocks, 64)) < 0.4
-    mask[40:70] = False  # a run of dead blocks
+    mask[40:70] = False  # a run of dead blocks: thread blocks 5-7 all empty
     mask[5] = False
     tbl = torch.from_numpy(tbl.astype(np.int32)).to(dev)
     mask = torch.from_numpy(mask).to(dev)
@@ -371,6 +375,10 @@ def test_up_conv_kernel_f32_on_gpu(exact_f32, blocks, cin, cout):
     assert _f32_err(out, ref) <= F32_RTOL
     assert _f32_err(up_conv_plain(reg.bfloat16(), w.bfloat16(), mask), ref) > 10 * F32_RTOL
     assert bool((out[~mask] == 0).all())
+    shape = up_conv_kernel.launch_shape(cin, cout, True)
+    assert shape["blocks_per_cta"] == 8 and blocks % 8 != 0
+    assert shape["region_parts"] == (1 if cin <= 128 else 2)
+    assert shape["stages"] >= 4 and shape["smem_bytes"] <= 232448 - 544
 
 
 @pytest.mark.cuda

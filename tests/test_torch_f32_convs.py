@@ -4,11 +4,11 @@ gradients, and the wrappers' routing of f32 operands to the kernels.
 
 The kernels multiply bf16 on the tensor cores with f32 sums. An f32
 operand runs as ``hi + lo`` (``kernels/split.py``): the f32 entries of
-``gather_conv`` and ``halo_conv`` split each f32 feature row on chip and
-run the three products ``Xh Wh + Xh Wl + Xl Wh`` against the ``[Wh ; Wl]``
-weight slots of each module's ``pack_split_weights``; ``up_conv``'s f32
-entry loops over the terms (the hi region against Wh and Wl, then the lo region
-against Wh); the f32 entries of dgrad and wgrad run ``dYh Wh + dYh Wl + dYm
+``gather_conv``, ``halo_conv`` and ``up_conv`` split each f32 feature or
+region row on chip and run the three products ``Xh Wh + Xh Wl + Xl Wh``
+against the ``[Wh ; Wl]`` weight slots of each module's
+``pack_split_weights`` (``up_conv`` takes ``halo_conv``'s); the f32
+entries of dgrad and wgrad run ``dYh Wh + dYh Wl + dYm
 Wh`` and ``dYh Xh + dYh Xl + dYm Xh`` (dY's first two terms), W packed by
 ``pack_dgrad_split_weights`` and X split on chip. Here each of those is
 modelled with the plain versions on the bf16 terms (exact products, f32
@@ -40,7 +40,7 @@ from roreg_tpu_torch.kernels.halo_conv import (  # noqa: E402
     pack_weights,
 )
 from roreg_tpu_torch.kernels.split import split_bf16x2  # noqa: E402
-from roreg_tpu_torch.kernels.up_conv import up_conv_plain  # noqa: E402
+from roreg_tpu_torch.kernels.up_conv import UpConvKernel, up_conv_plain  # noqa: E402
 
 # the kernels' f32 tolerance: 1e-4 of the output's largest magnitude (the
 # split leaves about 3 * 2^-18 of each product)
@@ -134,10 +134,12 @@ def test_three_product_halo_conv_model_matches_jax_f32(pyr, kind, level, cin, co
 
 @pytest.mark.parametrize("level,cin,cout", [(0, 128, 64), (1, 256, 64), (2, 256, 128)])
 def test_term_loop_up_conv_model_matches_jax_f32(pyr, level, cin, cout):
-    """up_conv's f32 entry as a loop over the terms, in the kernel's order:
-    the hi region against Wh and Wl into the accumulators, then the lo
-    region against Wh added on; against JAX ``conv_up`` at f32, at the
-    decoder's widths (Cin 256 included)."""
+    """up_conv's f32 entry in one pass, in the kernel's order: for each
+    16-channel chunk of a region part (128 channels; the second part's
+    sums added to the first's as they are stored), the three products
+    ``Xh Wh + Xh Wl + Xl Wh`` of the split region rows and weights added
+    into the f32 sums; against JAX ``conv_up`` at f32, at the decoder's
+    widths (Cin 256, two parts, included)."""
     p, occ = pyr
     rng = np.random.default_rng(level + 20)
     fc = (rng.normal(size=(len(occ[level + 1]), 64, cin)) * occ[level + 1][..., None]).astype(np.float32)
@@ -147,8 +149,14 @@ def test_term_loop_up_conv_model_matches_jax_f32(pyr, level, cin, cout):
     reg = block_gather_plain(_t(fc).reshape(-1, cin), _t(tbl))
     (rh, rl), (wh, wl) = split_bf16x2(reg), split_bf16x2(_t(w))
     m = _t(mask)
-    model = up_conv_plain(rh, wh, m) + up_conv_plain(rh, wl, m)  # first pass
-    model = model + up_conv_plain(rl, wh, m)  # second pass, from the stored sums
+    model = torch.zeros(reg.shape[0], 64, cout)
+    for part in range(0, cin, 128):
+        sums = torch.zeros_like(model)
+        for c in range(part, min(cin, part + 128), 16):
+            ch = slice(c, c + 16)
+            for x, wt in ((rh, wh), (rh, wl), (rl, wh)):
+                sums += up_conv_plain(x[..., ch].contiguous(), wt[:, ch].contiguous(), m)
+        model = model + sums
     assert _rel(model.numpy(), ref) <= F32_RTOL
     assert _rel(up_conv_plain(reg.bfloat16(), _t(w).bfloat16(), m).numpy(), ref) > 10 * F32_RTOL
 
@@ -330,12 +338,13 @@ def test_split_weight_slots_hold_the_terms_of_each_step(cin, cout):
 
 
 @pytest.mark.parametrize("kernel,entry,pack", [(HaloConvKernel, "halo_conv", pack_split_weights),
-                                               (GC.GatherConvKernel, "gather_conv", GC.pack_split_weights)])
+                                               (GC.GatherConvKernel, "gather_conv", GC.pack_split_weights),
+                                               (UpConvKernel, "up_conv", pack_split_weights)])
 def test_f32_operands_go_to_the_f32_entry_unsplit(kernel, entry, pack):
     """The wrappers' operand step: f32 operands go to the f32 entry with
-    the split weight slots and nothing made of the features (the step
-    reads only their type: here they lie on the meta device, with no
-    data); bf16 operands to the bf16 entry with ``pack_weights``."""
+    the split weight slots and nothing made of the features or the region
+    (the step reads only their type: here they lie on the meta device,
+    with no data); bf16 operands to the bf16 entry with ``pack_weights``."""
     w = torch.from_numpy(np.random.default_rng(1).normal(size=(27, 64, 32)).astype(np.float32))
     name, wp = kernel.operands(torch.empty(100, 64, device="meta"), w)
     want = pack(w)
